@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the port (csrc/), their wrappers and plain versions.
+
+    fused_compress   -- K4 fused_compress and K5 fused_shuffle_encode wrappers
+    fused_decode     -- K6 fused_decompress wrapper
+    ops              -- the fused route of the compressor (outlier routing)
+    ref              -- plain PyTorch versions, used for CPU tensors and as oracles
+    build            -- nvcc build at first use + ctypes binding
+
+Nothing is compiled when this package is imported.
+"""
+from __future__ import annotations
+
+from .fused_compress import fused_compress, fused_shuffle_encode
+from .fused_decode import fused_decompress
+
+WRAPPERS = {
+    "fused_compress": fused_compress,
+    "fused_shuffle_encode": fused_shuffle_encode,
+    "fused_decompress": fused_decompress,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,138 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA card. Run on a card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Every comparison is bit for bit: the kernels and the plain versions do the
+same integer work and the same IEEE float divide and multiply.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import FZConfig, compress, decompress, kernels
+from repro_torch.core import shuffle
+from repro_torch.data.fields import make_field
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(5000,), (37, 130), (9, 33, 70), (3, 4096), (2, 64, 64), (70000,),
+          (1,), (4096,), (3, 1, 7), (5000, 1), (1, 4097)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _field(shape, seed=0):
+    kind = "particle" if len(shape) == 1 else "turbulent"
+    return torch.from_numpy(make_field(kind, shape, seed=seed))
+
+
+def _equal(a, b):
+    torch.cuda.synchronize()
+    return torch.equal(a.cpu().to(torch.int64) if a.dtype in (torch.uint16, torch.uint32)
+                       else a.cpu(),
+                       b.cpu().to(torch.int64) if b.dtype in (torch.uint16, torch.uint32)
+                       else b.cpu())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("code_mode", ["sign_mag", "zigzag"])
+@pytest.mark.parametrize("capacity_frac", [1.0, 0.25])
+def test_fused_compress_matches_plain(cuda, shape, dtype, code_mode, capacity_frac):
+    x = _field(shape).to(dtype).to(cuda)
+    eb = torch.tensor(1e-3, dtype=torch.float32, device=cuda) * (x.float().amax() - x.float().amin())
+    cap = FZConfig(capacity_frac=capacity_frac).payload_capacity(x.numel())
+    got = kernels.fused_compress(x, eb, capacity=cap, code_mode=code_mode)
+    want = ref.fused_compress_ref(x, eb, capacity=cap, code_mode=code_mode)
+    for g, w in zip(got, want):
+        assert _equal(g, w)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("capacity_frac", [1.0, 0.25])
+def test_fused_shuffle_encode_matches_plain(cuda, shape, capacity_frac):
+    rng = np.random.default_rng(1)
+    n = int(np.prod(shape))
+    codes = torch.from_numpy(rng.geometric(0.3, size=n).astype(np.int32) - 1)
+    flat = shuffle.pad_to_tiles(codes).to(torch.uint16).to(cuda)
+    cap = FZConfig(capacity_frac=capacity_frac).payload_capacity(n)
+    got = kernels.fused_shuffle_encode(flat, capacity=cap)
+    want = ref.fused_shuffle_encode_ref(flat, capacity=cap)
+    for g, w in zip(got, want):
+        assert _equal(g, w)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("code_mode", ["sign_mag", "zigzag"])
+@pytest.mark.parametrize("capacity_frac", [1.0, 0.25])
+@pytest.mark.parametrize("outliers", [False, True])
+def test_fused_decompress_matches_plain(cuda, shape, code_mode, capacity_frac, outliers):
+    x = _field(shape, seed=2)
+    cfg = FZConfig(eb=1e-4, code_mode=code_mode, capacity_frac=capacity_frac,
+                   exact_outliers=outliers, use_kernels=False)
+    c = compress(x, cfg, device=cuda)
+    if outliers:   # force residuals: overwrite some deltas with large values
+        n = c.n
+        c.outlier_idx[: min(3, c.outlier_idx.numel())] = torch.tensor(
+            [0, n // 2, n - 1][: min(3, c.outlier_idx.numel())], dtype=torch.int32, device=cuda)
+        c.outlier_val[: min(3, c.outlier_val.numel())] = 40000
+    oidx = c.outlier_idx if outliers else None
+    oval = c.outlier_val if outliers else None
+    got = kernels.fused_decompress(c.bitflags, c.payload, c.eb_abs, shape=c.shape,
+                                   code_mode=code_mode, outlier_idx=oidx, outlier_val=oval)
+    want = ref.fused_decompress_ref(c.bitflags, c.payload, c.eb_abs, shape=c.shape,
+                                    code_mode=code_mode, outlier_idx=oidx, outlier_val=oval)
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("exact_outliers", [True, False])
+def test_entry_points_launch_the_kernels(cuda, exact_outliers):
+    x = _field((9, 33, 70), seed=3)
+    cfg = FZConfig(eb=1e-3, exact_outliers=exact_outliers)
+    kernels.reset_launch_counts()
+    c = compress(x, cfg)
+    y = decompress(c, cfg)
+    counts = kernels.launch_counts()
+    assert counts["fused_compress"] == (0 if exact_outliers else 1)
+    assert counts["fused_shuffle_encode"] == (1 if exact_outliers else 0)
+    assert counts["fused_decompress"] == 1
+    plain = FZConfig(eb=1e-3, exact_outliers=exact_outliers, use_kernels=False)
+    c0 = compress(x, plain)
+    for f in c.FIELDS:
+        assert _equal(getattr(c, f), getattr(c0, f)), f
+    assert _equal(y, decompress(c0, plain))
+
+
+@pytest.mark.parametrize("exact_outliers", [True, False])
+def test_zero_field_and_smallest_capacity(cuda, exact_outliers):
+    """All-zero data (no block flagged, the 1e-30 eb floor) and capacity 1."""
+    for x, frac in ((torch.zeros(9, 33, 70), 1.0), (_field((9, 33, 70), seed=5), 1e-9)):
+        cfg = FZConfig(eb=1e-3, capacity_frac=frac, exact_outliers=exact_outliers)
+        plain = FZConfig(eb=1e-3, capacity_frac=frac, exact_outliers=exact_outliers,
+                         use_kernels=False)
+        c, c0 = compress(x, cfg), compress(x, plain)
+        assert c.payload.shape[0] == c0.payload.shape[0]
+        for f in c.FIELDS:
+            assert _equal(getattr(c, f), getattr(c0, f)), f
+        assert _equal(decompress(c, cfg), decompress(c0, plain))
+
+
+def test_overflowing_deltas_take_the_outlier_route(cuda):
+    """Strict mode on a field with jumps: the residual channel fills and K5 still
+    matches the plain route."""
+    x = _field((9, 33, 70), seed=4)
+    x[::2] += 1000.0
+    cfg = FZConfig(eb=1e-3, eb_mode="abs")
+    c = compress(x, cfg)
+    assert int(c.n_outliers) > 0
+    y = decompress(c, cfg)
+    plain = FZConfig(eb=1e-3, eb_mode="abs", use_kernels=False)
+    assert _equal(y, decompress(compress(x, plain), plain))

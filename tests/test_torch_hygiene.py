@@ -1,0 +1,188 @@
+"""The port stands alone and runs on the card unless asked for the CPU.
+
+* No module of ``repro_torch`` and not ``chip_smoke.py`` imports ``jax`` or the
+  reference package ``repro`` (an AST walk, and an import in a subprocess
+  where both are blocked).
+* The entry points raise without a card unless given ``device="cpu"``.
+* ``kernel_mode="staged"`` raises ``NotImplementedError`` until K1-K3 are ported.
+* A kernel wrapper takes its plain version only for a CPU tensor and never
+  falls back for any other device; nothing is built on import.
+* ``chip_smoke.py`` fails, and prints no result, without a card or outside
+  the repository.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch as rt
+from repro_torch import interop, kernels
+from repro_torch.kernels import build
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _env_without_pythonpath():
+    return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    modules = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+               .removesuffix(".__init__") for p in FILES[:-1]]
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
+            + f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+            + f"sys.path.insert(0, {str(ROOT)!r})\n"
+            + "".join(f"import {m}\n" for m in modules)
+            + "import chip_smoke\n"
+            + "from repro_torch.kernels import build\n"
+            + "assert not build._loaded, 'a kernel library was loaded on import'\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=_env_without_pythonpath())
+    assert out.returncode == 0, out.stderr
+
+
+def _container():
+    x = np.linspace(-1, 1, 5000, dtype=np.float32)
+    return x, rt.compress(x, rt.FZConfig(), device="cpu")
+
+
+ENTRY_POINTS = {
+    "compress": lambda x, c: rt.compress(x, rt.FZConfig()),
+    "compress_with_eb": lambda x, c: rt.compress_with_eb(x, 1e-3, rt.FZConfig()),
+    "decompress": lambda x, c: rt.decompress(c, rt.FZConfig()),
+    "roundtrip": lambda x, c: rt.roundtrip(x, rt.FZConfig()),
+    "from_reference": lambda x, c: interop.from_reference(interop.to_numpy(c), c.shape,
+                                                          c.dtype_name),
+    "resolve_device": lambda x, c: rt.resolve_device(),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    x, c = _container()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name](x, c)
+
+
+def test_cpu_on_request():
+    assert rt.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        rt.resolve_device("meta")
+    x, c = _container()
+    rec = rt.decompress(c, rt.FZConfig(), device="cpu")
+    assert rec.shape == x.shape and rec.device.type == "cpu"
+
+
+def test_defaults_take_the_kernel_route():
+    cfg = rt.FZConfig()
+    assert cfg.use_kernels is True and cfg.kernel_mode == "auto"
+    assert rt.ARCH == "sm_90a"
+
+
+@pytest.mark.parametrize("op", ["compress", "decompress"])
+def test_staged_mode_is_not_ported_yet(op):
+    x, c = _container()
+    cfg = rt.FZConfig(kernel_mode="staged")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if op == "compress":
+            rt.compress(x, cfg, device="cpu")
+        else:
+            rt.decompress(c, cfg, device="cpu")
+    # the plain route does not need the staged kernels
+    rt.compress(x, rt.FZConfig(kernel_mode="staged", use_kernels=False), device="cpu")
+
+
+def test_unknown_kernel_mode_is_rejected():
+    with pytest.raises(ValueError):
+        rt.FZConfig(kernel_mode="megakernel")
+
+
+def test_wrappers_run_plain_versions_on_cpu_and_count_nothing():
+    kernels.reset_launch_counts()
+    x = torch.linspace(0, 1, 9000).reshape(90, 100)
+    eb = torch.tensor(1e-3)
+    bf, pl, nnz = kernels.fused_compress(x, eb, capacity=1000)
+    kernels.fused_shuffle_encode(torch.zeros(4096, dtype=torch.uint16), capacity=10)
+    kernels.fused_decompress(bf, pl, eb, shape=(90, 100))
+    assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
+    assert not build._loaded
+
+
+@pytest.mark.parametrize("wrapper", ["fused_compress", "fused_shuffle_encode",
+                                     "fused_decompress"])
+def test_wrappers_never_fall_back_on_other_devices(wrapper):
+    meta = torch.device("meta")
+    eb = torch.tensor(1e-3, device=meta)
+    calls = {
+        "fused_compress": lambda: kernels.fused_compress(
+            torch.empty(100, device=meta), eb, capacity=4),
+        "fused_shuffle_encode": lambda: kernels.fused_shuffle_encode(
+            torch.empty(4096, dtype=torch.uint16, device=meta), capacity=4),
+        "fused_decompress": lambda: kernels.fused_decompress(
+            torch.empty(16, dtype=torch.uint32, device=meta),
+            torch.empty(4, 8, dtype=torch.uint16, device=meta), eb, shape=(100,)),
+    }
+    with pytest.raises(ValueError, match="unsupported device"):
+        calls[wrapper]()
+
+
+def test_build_targets_sm90a_without_fast_math(monkeypatch, tmp_path):
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert build.library_path("fz_compress.cu").parent == rt.BUILD_DIR
+    assert build.library_path("fz_compress.cu") != build.library_path("fz_decompress.cu")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
+
+
+def _run_smoke(cwd: Path, fake_card: bool):
+    prelude = "import torch; torch.cuda.is_available = lambda: True; " if fake_card else ""
+    code = prelude + "import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')"
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True,
+                          text=True, timeout=120, env=_env_without_pythonpath())
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = _run_smoke(ROOT, fake_card=False)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    """Alone in a directory, even where a card is reported, the script cannot
+    find the port and exits non-zero before printing any result."""
+    (tmp_path / "chip_smoke.py").write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    out = _run_smoke(tmp_path, fake_card=True)
+    assert out.returncode != 0
+    assert "repro_torch" in out.stderr
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
