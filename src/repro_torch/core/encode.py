@@ -47,11 +47,14 @@ def unpack_bitflags(bitflags: torch.Tensor, n_blocks: int) -> torch.Tensor:
 
 def compact_blocks(flags: torch.Tensor, blocks: torch.Tensor, *, capacity: int):
     """(flags bool[n_blocks], blocks[n_blocks, 8]) ->
-    (bitflags uint32[W], payload uint16[capacity, 8], nnz int32[])."""
+    (bitflags uint32[W], payload uint16[capacity, 8], nnz int32[]).
+
+    ``blocks`` holds u16 words in any integer type (int16 bits included).
+    """
     nnz = flags.sum(dtype=torch.int32)
     src = torch.nonzero(flags).reshape(-1)[:capacity]
     payload = torch.zeros(capacity, BLOCK_WORDS, dtype=torch.int32, device=blocks.device)
-    payload[: src.numel()] = blocks[src].to(torch.int32)
+    payload[: src.numel()] = blocks[src].to(torch.int32) & 0xFFFF
     return pack_bitflags(flags), payload.to(torch.uint16), nnz
 
 

@@ -1,31 +1,43 @@
-"""FZ public API in PyTorch: the hot-path port of ``repro.core.fz``.
+"""FZ public API in PyTorch: the port of ``repro.core.fz``.
 
 Pipeline (paper Fig. 1): dual-quantization -> bitshuffle -> zero-block
 encoding, and its inverse. A container (:class:`FZCompressed`) holds
-fixed-shape tensors, field for field the reference's.
+fixed-shape tensors, field for field the reference's (the hot form); the
+byte container of ``docs/CONTAINER_FORMAT.md`` is the cold form
+(:func:`to_bytes`, :func:`from_bytes`, :func:`decompress_bytes`).
 
-Two routes, bit-identical in containers and reconstructions:
+Three routes, bit-identical in containers and reconstructions:
 
-* ``use_kernels=True`` (the port's default): the fused kernels
-  (``kernels/ops.py``) -- K4 in paper mode, plain ``dual_quantize`` + K5 in
-  strict mode, K6 to decompress. ``kernel_mode="auto"`` resolves to
-  ``"fused"``. For CPU tensors the kernel wrappers run their plain versions.
+* ``use_kernels=True`` (the port's default), ``kernel_mode="fused"``: the
+  fused kernels (``kernels/ops.py``) -- K4 in paper mode, plain
+  ``dual_quantize`` + K5 in strict mode, K6 to decompress.
+  ``kernel_mode="auto"`` resolves to ``"fused"`` (the reference's tuner is
+  not ported).
+* ``use_kernels=True``, ``kernel_mode="staged"``: one kernel per stage, as
+  ``repro/core/fz.py:_stages`` picks them -- K1 (paper mode) or plain
+  ``dual_quantize`` (strict mode), K2 + torch-op compaction, and K3 to
+  unshuffle; the codes go through device memory between the stages.
 * ``use_kernels=False``: the plain stages of ``core.quant``, ``core.shuffle``
   and ``core.encode`` -- the oracle the tests and ``chip_smoke.py`` use.
 
-This differs from the reference on purpose: there ``use_kernels`` defaults to
-False. The entry points run on the CUDA card unless ``device="cpu"`` is given,
-and raise when no card is available.
+For CPU tensors the kernel wrappers run their plain versions. This differs
+from the reference on purpose: there ``use_kernels`` defaults to False. The
+entry points run on the CUDA card unless ``device="cpu"`` is given, and raise
+when no card is available.
 """
 from __future__ import annotations
 
 import dataclasses
+import struct
+from typing import Any
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..kernels import ops
 from . import encode as enc
+from . import entropy as ent
 from . import quant, shuffle
 
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
@@ -101,6 +113,11 @@ class FZCompressed:
     def compression_ratio(self) -> float:
         return self.raw_bytes() / self.used_bytes()
 
+    def wire_bytes(self) -> int:
+        """Bytes moved if this container crosses a link (capacity-sized)."""
+        return sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                   for f in self.FIELDS)
+
 
 def _dtype_name(data: torch.Tensor) -> str:
     """Source dtype the container's byte accounting is charged against."""
@@ -139,15 +156,23 @@ def resolve_eb(data: torch.Tensor, cfg: FZConfig) -> torch.Tensor:
 
 
 def _fused(cfg: FZConfig) -> bool:
-    """True for the kernel route; ``"auto"`` resolves to ``"fused"``."""
-    if not cfg.use_kernels:
-        return False
-    if cfg.kernel_mode == "staged":
-        raise NotImplementedError(
-            "kernel_mode='staged' needs K1-K3 (lorenzo_quant, bitshuffle_flag, "
-            "bitunshuffle_tiles), which are not ported yet: ROADMAP.md, queue 2, "
-            "'Staged path'. Use kernel_mode='fused' or 'auto'.")
-    return True
+    """True for the fused kernel route; ``"auto"`` resolves to ``"fused"``."""
+    return cfg.use_kernels and cfg.kernel_mode != "staged"
+
+
+def _plain_shuffle_encode(codes_flat, *, capacity):
+    return enc.encode(shuffle.bitshuffle(codes_flat), capacity=capacity)
+
+
+def _stages(cfg: FZConfig):
+    """(quantize, shuffle_encode, unshuffle): the staged kernels or the plain stages.
+
+    The fused route does not decompose into these three stages; ``_fused``
+    routes it wholesale.
+    """
+    if cfg.use_kernels:
+        return ops.lorenzo_quantize, ops.bitshuffle_flag_encode, ops.bitunshuffle
+    return quant.dual_quantize, _plain_shuffle_encode, shuffle.bitunshuffle
 
 
 def compress(data, cfg: FZConfig, *, device="cuda") -> FZCompressed:
@@ -174,10 +199,11 @@ def _compress_core(x: torch.Tensor, eb: torch.Tensor, cfg: FZConfig,
         bitflags, payload, nnz, oidx, oval, n_over = ops.fused_compress_stages(
             x, eb, code_mode=cfg.code_mode, capacity=capacity, outlier_capacity=ocap)
     else:
-        codes, oidx, oval, n_over = quant.dual_quantize(
-            x.to(torch.float32), eb, code_mode=cfg.code_mode, outlier_capacity=ocap)
-        shuffled = shuffle.bitshuffle(shuffle.pad_to_tiles(codes.reshape(-1)))
-        bitflags, payload, nnz = enc.encode(shuffled, capacity=capacity)
+        quantize, shuffle_encode, _ = _stages(cfg)
+        codes, oidx, oval, n_over = quantize(x, eb, code_mode=cfg.code_mode,
+                                             outlier_capacity=ocap)
+        bitflags, payload, nnz = shuffle_encode(shuffle.pad_to_tiles(codes.reshape(-1)),
+                                                capacity=capacity)
     return FZCompressed(
         bitflags=bitflags, payload=payload, nnz_blocks=nnz, outlier_idx=oidx,
         outlier_val=oval, n_outliers=torch.clamp(n_over, max=oidx.numel()).to(torch.int32),
@@ -193,8 +219,9 @@ def decompress(c: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor
         return ops.fused_decompress(c.bitflags, c.payload, c.eb_abs, shape=c.shape,
                                     code_mode=cfg.code_mode, outlier_idx=oidx,
                                     outlier_val=oval)
+    _, _, unshuffle = _stages(cfg)
     words = enc.decode(c.bitflags, c.payload, n_blocks=FZConfig.n_blocks(c.n))
-    codes = shuffle.bitunshuffle(words)[: c.n]
+    codes = unshuffle(words)[: c.n]
     return quant.dual_dequantize(codes, c.eb_abs, c.shape, code_mode=cfg.code_mode,
                                  outlier_idx=oidx, outlier_val=oval)
 
@@ -203,3 +230,304 @@ def roundtrip(data, cfg: FZConfig, *, device="cuda"):
     """compress + decompress; returns (reconstruction, container)."""
     c = compress(data, cfg, device=device)
     return decompress(c, cfg, device=device), c
+
+
+# ---------------------------------------------------------------------------
+# Batch and tree forms
+# ---------------------------------------------------------------------------
+
+def compress_batch_with_eb(pages_flat, eb_abs, cfg: FZConfig, *,
+                           device="cuda") -> FZCompressed:
+    """``compress_with_eb`` over same-shaped rows at one shared bound.
+
+    The container stacks each field along a leading batch dimension and keeps
+    the row's shape; each row is bit-identical to a single-row
+    ``compress_with_eb`` call, as the reference pins its vmapped form. The
+    rows run one after another.
+    """
+    x = torch.as_tensor(pages_flat).to(resolve_device(device))
+    if x.ndim < 2 or x.shape[0] == 0:
+        raise ValueError(f"compress_batch_with_eb takes a non-empty leading batch "
+                         f"dimension, got shape {tuple(x.shape)}")
+    rows = [compress_with_eb(x[i], eb_abs, cfg, device=x.device) for i in range(x.shape[0])]
+    return dataclasses.replace(
+        rows[0], **{f: torch.stack([getattr(r, f) for r in rows]) for f in FZCompressed.FIELDS})
+
+
+def decompress_batch(comp: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor:
+    """Inverse of :func:`compress_batch_with_eb` -> float32[batch, *shape]."""
+    comp = comp.to(resolve_device(device))
+    if comp.nnz_blocks.ndim != 1:
+        raise ValueError("decompress_batch takes a container stacked along a batch dimension")
+    return torch.stack([
+        decompress(dataclasses.replace(comp, **{f: getattr(comp, f)[i]
+                                                for f in FZCompressed.FIELDS}),
+                   cfg, device=comp.eb_abs.device)
+        for i in range(comp.nnz_blocks.shape[0])])
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (``rest``: same structure)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree, *rest)
+
+
+def tree_compress(tree: Any, cfg: FZConfig, *, device="cuda") -> Any:
+    """Compress every float tensor leaf of >= one tile and <= 3 dims; others pass through."""
+    dev = resolve_device(device)
+
+    def leaf(x):
+        if (isinstance(x, torch.Tensor) and x.is_floating_point()
+                and x.numel() >= shuffle.TILE and x.ndim <= 3):
+            return compress(x, cfg, device=dev)
+        return x
+    return _tree_map(leaf, tree)
+
+
+def tree_decompress(tree: Any, cfg: FZConfig, dtypes: Any | None = None, *,
+                    device="cuda") -> Any:
+    """Decompress every container leaf; ``dtypes`` (same structure) casts the leaves."""
+    dev = resolve_device(device)
+    out = _tree_map(lambda x: decompress(x, cfg, device=dev) if isinstance(x, FZCompressed)
+                    else x, tree)
+    if dtypes is not None:
+        out = _tree_map(lambda x, d: x.to(d), out, dtypes)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Serialized byte containers (cold tier, checkpoints): docs/CONTAINER_FORMAT.md
+#
+# Host-side numpy. The bytes are the reference's, byte for byte.
+# ---------------------------------------------------------------------------
+
+CONTAINER_MAGIC = b"FZGC"
+CONTAINER_VERSION = 1
+
+FLAG_ENTROPY = 1 << 0    # payload section is a core.entropy blob
+FLAG_ZIGZAG = 1 << 1     # zigzag quantization codes (else sign-magnitude)
+FLAG_OUTLIERS = 1 << 2   # exact-outlier channel present in the stream
+
+ENTROPY_MIN_GAIN = 0.02      # probe must predict >= 2% saving to encode
+_MIN_ENTROPY_BYTES = 256     # below this the blob overhead can't win
+
+_DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2, "float64": 3}
+_DTYPE_NAMES = {v: k for k, v in _DTYPE_CODES.items()}
+
+_HDR = struct.Struct("<4sHHBBH")   # magic, version, flags, ndim, dtype, rsvd
+_TAIL = struct.Struct("<QQfQ")     # nnz, n_outliers, eb_abs, payload_len
+_LEGACY_HDR_BYTES = 28             # i64 n/nnz/n_out + f32 eb (pre-v1 streams)
+
+
+class FZFormatError(ValueError):
+    """Raised for malformed, truncated, or unsupported serialized containers."""
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def to_bytes(c: FZCompressed, cfg: FZConfig, *, entropy: bool | str = "auto",
+             chunk_bytes: int = ent.DEFAULT_CHUNK, tier: str | None = None) -> bytes:
+    """Serialize a container (on any device) to the exact v1 byte stream.
+
+    ``entropy``: ``"auto"`` probes the payload byte histogram
+    (``entropy.plan``) and entropy-codes only when the exact predicted blob
+    is at least ``ENTROPY_MIN_GAIN`` smaller; ``True``/``False`` force the
+    choice. The header flags record it, so :func:`from_bytes` routes on its
+    own. ``tier`` is accepted for the reference's signature and unused: the
+    reference counts ``entropy_stage`` under it, and the port has no
+    counters yet.
+    """
+    if entropy not in (True, False, "auto"):
+        raise ValueError(f"entropy must be True/False/'auto', got {entropy!r}")
+    if c.dtype_name not in _DTYPE_CODES:
+        raise FZFormatError(f"unserializable container dtype {c.dtype_name!r}")
+    nnz = int(c.nnz_blocks)
+    rows = min(nnz, int(c.payload.shape[0]))
+    n_out = int(c.n_outliers)
+    payload = _host(c.payload[:rows]).astype("<u2").tobytes()
+
+    selected = False
+    body = payload
+    if entropy is True or (entropy == "auto" and len(payload) >= _MIN_ENTROPY_BYTES):
+        counts = np.bincount(np.frombuffer(payload, np.uint8), minlength=256)
+        lengths, est = ent.plan(counts, len(payload), chunk_bytes)
+        if entropy is True or est <= len(payload) * (1.0 - ENTROPY_MIN_GAIN):
+            blob = ent.encode(payload, chunk_bytes, lengths=lengths)
+            if entropy is True or len(blob) < len(payload):
+                selected, body = True, blob
+
+    flags = ((FLAG_ENTROPY if selected else 0)
+             | (FLAG_ZIGZAG if cfg.code_mode == "zigzag" else 0)
+             | (FLAG_OUTLIERS if cfg.exact_outliers else 0))
+    parts = [
+        _HDR.pack(CONTAINER_MAGIC, CONTAINER_VERSION, flags, len(c.shape),
+                  _DTYPE_CODES[c.dtype_name], 0),
+        np.asarray(c.shape, "<u8").tobytes(),
+        _TAIL.pack(nnz, n_out, float(c.eb_abs), len(body)),
+        _host(c.bitflags).astype("<u4").tobytes(),
+        body,
+    ]
+    if flags & FLAG_OUTLIERS:
+        parts.append(_host(c.outlier_idx[:n_out]).astype("<i4").tobytes())
+        parts.append(_host(c.outlier_val[:n_out]).astype("<i4").tobytes())
+    return b"".join(parts)
+
+
+def _np_slice(raw: memoryview, dtype: str, count: int, offset: int,
+              what: str) -> np.ndarray:
+    itemsize = np.dtype(dtype).itemsize
+    if offset + count * itemsize > len(raw):
+        raise FZFormatError(f"container truncated in {what} section ({len(raw)} bytes)")
+    return np.frombuffer(raw, dtype, count, offset)
+
+
+def _unpack(bitflags, rows, n, nnz, oidx, oval, n_out, eb_abs, shape, dtype_name, *,
+            capacity, outlier_capacity, default_ocap, device) -> FZCompressed:
+    """Parsed sections -> a container padded as ``compress`` pads it, on ``device``.
+
+    Payload rows past the stored ones are zero; outlier index slots past
+    ``n_out`` hold ``n`` and value slots 0.
+    """
+    cap = max(len(rows), 1) if capacity is None else capacity
+    if cap < len(rows):
+        raise FZFormatError(f"capacity {cap} < {len(rows)} stored payload rows")
+    payload = np.zeros((cap, enc.BLOCK_WORDS), np.uint16)
+    payload[: len(rows)] = rows
+    ocap = default_ocap if outlier_capacity is None else outlier_capacity
+    if ocap < len(oidx):
+        raise FZFormatError(f"outlier_capacity {ocap} < {len(oidx)} stored")
+    oi = np.full((ocap,), n, np.int32)
+    oi[: len(oidx)] = oidx
+    ov = np.zeros((ocap,), np.int32)
+    ov[: len(oval)] = oval
+
+    def tensor(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+    return FZCompressed(
+        bitflags=tensor(bitflags, np.uint32), payload=tensor(payload, np.uint16),
+        nnz_blocks=tensor(nnz, np.int32), outlier_idx=tensor(oi, np.int32),
+        outlier_val=tensor(ov, np.int32), n_outliers=tensor(n_out, np.int32),
+        eb_abs=tensor(eb_abs, np.float32), shape=tuple(shape), dtype_name=dtype_name)
+
+
+def from_bytes(raw: bytes, *, capacity: int | None = None,
+               outlier_capacity: int | None = None, tier: str | None = None,
+               device="cuda") -> tuple[FZCompressed, FZConfig]:
+    """Parse a serialized container back into the fixed-shape form on ``device``.
+
+    The result is field for field what ``compress`` produced (at equal
+    capacities): payload rows past ``nnz`` are zero, outlier index slots past
+    ``n_outliers`` hold ``n`` and value slots 0. ``capacity`` /
+    ``outlier_capacity`` override the padded sizes; the defaults are the
+    tightest sizes that decode exactly. Streams without the ``FZGC`` magic
+    are parsed as the legacy headerless stream; a version other than
+    ``CONTAINER_VERSION`` raises :class:`FZFormatError`. ``tier`` is unused
+    (see :func:`to_bytes`).
+
+    Returns ``(container, cfg)``; ``cfg`` carries the decode statics
+    (``code_mode``, ``exact_outliers``) and ``eb=0.0`` (the bound travels in
+    ``container.eb_abs``). Deliberate difference from the reference: ``cfg``
+    keeps the port's default kernel route (``use_kernels=True``) where the
+    reference returns ``use_kernels=False``, so that ``decompress_bytes``
+    runs K6 on the card. The reconstruction is bit-identical either way.
+    """
+    dev = resolve_device(device)
+    raw = memoryview(raw)
+    if bytes(raw[:4]) != CONTAINER_MAGIC:
+        return _from_legacy_bytes(raw, capacity=capacity,
+                                  outlier_capacity=outlier_capacity, device=dev)
+    if len(raw) < _HDR.size + _TAIL.size:
+        raise FZFormatError(f"container truncated: {len(raw)} bytes")
+    _, version, flags, ndim, dtcode, _ = _HDR.unpack_from(raw, 0)
+    if version != CONTAINER_VERSION:
+        raise FZFormatError(
+            f"FZ container version {version} is not supported by this build "
+            f"(max {CONTAINER_VERSION}); upgrade repro_torch or re-serialize with "
+            f"a matching version")
+    if dtcode not in _DTYPE_NAMES:
+        raise FZFormatError(f"unknown container dtype code {dtcode}")
+    off = _HDR.size
+    shape = tuple(int(v) for v in _np_slice(raw, "<u8", ndim, off, "shape"))
+    off += 8 * ndim
+    if off + _TAIL.size > len(raw):
+        raise FZFormatError(f"container truncated in header ({len(raw)} bytes)")
+    nnz, n_out, eb_abs, payload_len = _TAIL.unpack_from(raw, off)
+    off += _TAIL.size
+    n = 1
+    for s in shape:
+        n *= s
+    fw = enc.flag_words(FZConfig.n_blocks(n))
+    bitflags = _np_slice(raw, "<u4", fw, off, "bitflags")
+    off += 4 * fw
+    if off + payload_len > len(raw):
+        raise FZFormatError(f"container truncated in payload section ({len(raw)} bytes)")
+    body = bytes(raw[off:off + payload_len])
+    off += payload_len
+    if flags & FLAG_ENTROPY:
+        body = ent.decode(body)
+    if len(body) % enc.BLOCK_BYTES:
+        raise FZFormatError(f"payload of {len(body)} bytes is not whole {enc.BLOCK_BYTES}-byte "
+                            "blocks")
+    n_rows = len(body) // enc.BLOCK_BYTES
+    rows = np.frombuffer(body, "<u2", n_rows * enc.BLOCK_WORDS).reshape(n_rows, enc.BLOCK_WORDS)
+
+    if flags & FLAG_OUTLIERS:
+        oidx = _np_slice(raw, "<i4", n_out, off, "outlier idx")
+        off += 4 * n_out
+        oval = _np_slice(raw, "<i4", n_out, off, "outlier val")
+        default_ocap = max(n_out, 1)
+    else:
+        oidx = oval = np.zeros(0, np.int32)
+        default_ocap = 0
+    c = _unpack(bitflags, rows, n, nnz, oidx, oval, n_out, eb_abs, shape,
+                _DTYPE_NAMES[dtcode], capacity=capacity, outlier_capacity=outlier_capacity,
+                default_ocap=default_ocap, device=dev)
+    cfg = FZConfig(eb=0.0, eb_mode="abs",
+                   code_mode="zigzag" if flags & FLAG_ZIGZAG else "sign_mag",
+                   exact_outliers=bool(flags & FLAG_OUTLIERS))
+    return c, cfg
+
+
+def _from_legacy_bytes(raw: memoryview, *, capacity: int | None,
+                       outlier_capacity: int | None,
+                       device: torch.device) -> tuple[FZCompressed, FZConfig]:
+    """Parse the headerless pre-v1 checkpoint stream: i64 [n, nnz, n_outliers],
+    f32 eb_abs, u32 bitflags, u16 payload rows, i32 outlier idx + val."""
+    if len(raw) < _LEGACY_HDR_BYTES:
+        raise FZFormatError(f"not an FZ container: {len(raw)} bytes, no magic")
+    n, nnz, n_out = (int(v) for v in np.frombuffer(raw, "<i8", 3, 0))
+    eb_abs = float(np.frombuffer(raw, "<f4", 1, 24)[0])
+    if n <= 0 or nnz < 0 or n_out < 0:
+        raise FZFormatError("not an FZ container: no magic and implausible legacy header")
+    fw = enc.flag_words(FZConfig.n_blocks(n))
+    expect = _LEGACY_HDR_BYTES + 4 * fw + enc.BLOCK_BYTES * nnz + 8 * n_out
+    if len(raw) != expect:
+        raise FZFormatError(
+            f"not an FZ container: no magic and legacy stream length "
+            f"mismatch ({len(raw)} bytes, expected {expect})")
+    off = _LEGACY_HDR_BYTES
+    bitflags = np.frombuffer(raw, "<u4", fw, off)
+    off += 4 * fw
+    rows = np.frombuffer(raw, "<u2", enc.BLOCK_WORDS * nnz, off).reshape(nnz, enc.BLOCK_WORDS)
+    off += enc.BLOCK_BYTES * nnz
+    oidx = np.frombuffer(raw, "<i4", n_out, off)
+    off += 4 * n_out
+    oval = np.frombuffer(raw, "<i4", n_out, off)
+    c = _unpack(bitflags, rows, n, nnz, oidx, oval, n_out, eb_abs, (n,), "float32",
+                capacity=capacity, outlier_capacity=outlier_capacity,
+                default_ocap=max(n_out, 1), device=device)
+    return c, FZConfig(eb=0.0, eb_mode="abs", exact_outliers=True)
+
+
+def decompress_bytes(raw: bytes, *, tier: str | None = None, device="cuda") -> torch.Tensor:
+    """Reconstruction from a serialized container of any supported version."""
+    c, cfg = from_bytes(raw, tier=tier, device=device)
+    return decompress(c, cfg, device=device)

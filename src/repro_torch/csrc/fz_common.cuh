@@ -1,6 +1,6 @@
 // Shared pieces of the FZ kernels for Hopper (sm_90a): stream geometry, the
-// 16x16 bit transpose by warp ballot, and a single-pass decoupled look-back
-// scan across CTAs.
+// quantization codes (K1, K4), the 16x16 bit transpose by warp ballot (K2, K3,
+// K5, K6), and a single-pass decoupled look-back scan across CTAs.
 //
 // Bit convention (the reference's, repro/core/shuffle.py): bit b of element e
 // of a 16-code group lands in bit 15-e of word 15-b, and a tile's words are
@@ -90,6 +90,107 @@ __device__ __forceinline__ long long take_ticket(unsigned* ticket) {
   __syncthreads();
   return s_seg;
 }
+
+// Warp-wide bit transpose of two 16-code groups. Lane l holds code l (element
+// l & 15 of group l >> 4) and gets word l & 15 (bit plane) of group l >> 4.
+__device__ __forceinline__ unsigned shuffle_warp(unsigned code) {
+  const int lane = threadIdx.x & 31;
+  unsigned mine = 0;
+#pragma unroll
+  for (int w = 0; w < 16; ++w) {
+    const unsigned m = __brev(__ballot_sync(0xffffffffu, (code >> (15 - w)) & 1u));
+    const unsigned word = lane < 16 ? (m >> 16) : (m & 0xFFFFu);
+    if ((lane & 15) == w) mine = word;
+  }
+  return mine;
+}
+
+// The inverse: lane l holds word l & 15 of group l >> 4 and gets code l back;
+// the ballot over bit k of the words gives element 15 - k of both groups.
+__device__ __forceinline__ unsigned unshuffle_warp(unsigned word) {
+  const int lane = threadIdx.x & 31;
+  unsigned mine = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const unsigned m = __brev(__ballot_sync(0xffffffffu, (word >> k) & 1u));
+    const unsigned code = lane < 16 ? (m >> 16) : (m & 0xFFFFu);
+    if ((lane & 15) == 15 - k) mine = code;
+  }
+  return mine;
+}
+
+// Saturating u16 code of an int32 Lorenzo delta: sign-magnitude (<= 0x7FFF)
+// or zigzag (<= 0xFFFF), as the reference's to_codes.
+__device__ __forceinline__ unsigned to_code(int d, int zigzag) {
+  if (!zigzag) {
+    const int mag = d < 0 ? static_cast<int>(0u - static_cast<unsigned>(d)) : d;
+    const int sat = min(mag, 0x7FFF);
+    return (static_cast<unsigned>(sat) & 0xFFFFu) | (d < 0 ? 0x8000u : 0u);
+  }
+  const int z = static_cast<int>((static_cast<unsigned>(d) << 1) ^
+                                 static_cast<unsigned>(d >> 31));
+  return static_cast<unsigned>(min(z, 0xFFFF)) & 0xFFFFu;
+}
+
+// Codes computed from float data (K1, K4): code(p) re-quantizes the Lorenzo
+// neighbours of element p straight from the input, so no thread depends on
+// another. BF16 is passed as its raw 16 bits and widened exactly. Dims: n
+// elements; row = last axis; plane = last two axes. Pre-quantization is
+// __fdiv_rn (a true IEEE divide) rounded half to even, as the reference; the
+// delta is the inclusion-exclusion over the neighbours in unsigned 32-bit
+// arithmetic, which wraps exactly as the reference's int32 differences do.
+template <bool BF16, int ND>
+struct CodesFromFloat {
+  const void* x;
+  const float* eb;                 // device scalar: the absolute error bound
+  int n, row, plane;
+  int zigzag;
+  float two_eb;
+
+  __device__ __forceinline__ void prepare() { two_eb = 2.0f * *eb; }
+
+  __device__ __forceinline__ unsigned q(int p) const {
+    float v;
+    if (BF16) {
+      v = __uint_as_float(static_cast<unsigned>(static_cast<const uint16_t*>(x)[p]) << 16);
+    } else {
+      v = static_cast<const float*>(x)[p];
+    }
+    return static_cast<unsigned>(__float2int_rn(__fdiv_rn(v, two_eb)));
+  }
+
+  __device__ __forceinline__ unsigned code(int p) const {
+    if (p >= n) return 0u;                       // zero pad past the data
+    unsigned d = q(p);
+    if (ND == 1) {
+      if (p > 0) d -= q(p - 1);
+    } else if (ND == 2) {
+      const int i = p / row, j = p - i * row;
+      if (j > 0) d -= q(p - 1);
+      if (i > 0) {
+        d -= q(p - row);
+        if (j > 0) d += q(p - row - 1);
+      }
+    } else {
+      const int i = p / plane, r = p - i * plane;
+      const int j = r / row, k = r - j * row;
+      if (k > 0) d -= q(p - 1);
+      if (j > 0) {
+        d -= q(p - row);
+        if (k > 0) d += q(p - row - 1);
+      }
+      if (i > 0) {
+        d -= q(p - plane);
+        if (k > 0) d += q(p - plane - 1);
+        if (j > 0) {
+          d += q(p - plane - row);
+          if (k > 0) d -= q(p - plane - row - 1);
+        }
+      }
+    }
+    return to_code(static_cast<int>(d), zigzag);
+  }
+};
 
 // Exclusive count of set flags before block b of a tile's packed flags.
 __device__ __forceinline__ unsigned flags_before(const uint32_t* fw, int b) {

@@ -18,85 +18,18 @@
 // the flags and the used payload written once; the integer work per code is a
 // few dozen operations, far below the card's rate.
 //
-// Exactness: pre-quantization is __fdiv_rn (a true IEEE divide) rounded half to
-// even, as the reference; the Lorenzo delta is the inclusion-exclusion over
-// the neighbours in unsigned 32-bit arithmetic, which wraps exactly as the
-// reference's int32 differences do. Build without --use_fast_math.
+// Exactness: the codes come from fz_common.cuh's CodesFromFloat (a true IEEE
+// divide, round half to even, wrapping integer deltas), shared with K1. Build
+// without --use_fast_math.
 #include "fz_common.cuh"
 
 namespace fz {
-
-__device__ __forceinline__ unsigned to_code(int d, int zigzag) {
-  if (!zigzag) {
-    const int mag = d < 0 ? static_cast<int>(0u - static_cast<unsigned>(d)) : d;
-    const int sat = min(mag, 0x7FFF);
-    return (static_cast<unsigned>(sat) & 0xFFFFu) | (d < 0 ? 0x8000u : 0u);
-  }
-  const int z = static_cast<int>((static_cast<unsigned>(d) << 1) ^
-                                 static_cast<unsigned>(d >> 31));
-  return static_cast<unsigned>(min(z, 0xFFFF)) & 0xFFFFu;
-}
 
 // Codes given as u16 (K5); the stream is a whole number of tiles.
 struct CodesU16 {
   const uint16_t* codes;
   __device__ __forceinline__ void prepare() {}
   __device__ __forceinline__ unsigned code(int p) const { return codes[p]; }
-};
-
-// Codes computed from float data (K4). BF16 is passed as its raw 16 bits and
-// widened exactly. Dims: n elements; row = last axis; plane = last two axes.
-template <bool BF16, int ND>
-struct CodesFromFloat {
-  const void* x;
-  const float* eb;                 // device scalar: the absolute error bound
-  int n, row, plane;
-  int zigzag;
-  float two_eb;
-
-  __device__ __forceinline__ void prepare() { two_eb = 2.0f * *eb; }
-
-  __device__ __forceinline__ unsigned q(int p) const {
-    float v;
-    if (BF16) {
-      v = __uint_as_float(static_cast<unsigned>(static_cast<const uint16_t*>(x)[p]) << 16);
-    } else {
-      v = static_cast<const float*>(x)[p];
-    }
-    return static_cast<unsigned>(__float2int_rn(__fdiv_rn(v, two_eb)));
-  }
-
-  __device__ __forceinline__ unsigned code(int p) const {
-    if (p >= n) return 0u;                       // zero pad past the data
-    unsigned d = q(p);
-    if (ND == 1) {
-      if (p > 0) d -= q(p - 1);
-    } else if (ND == 2) {
-      const int i = p / row, j = p - i * row;
-      if (j > 0) d -= q(p - 1);
-      if (i > 0) {
-        d -= q(p - row);
-        if (j > 0) d += q(p - row - 1);
-      }
-    } else {
-      const int i = p / plane, r = p - i * plane;
-      const int j = r / row, k = r - j * row;
-      if (k > 0) d -= q(p - 1);
-      if (j > 0) {
-        d -= q(p - row);
-        if (k > 0) d += q(p - row - 1);
-      }
-      if (i > 0) {
-        d -= q(p - plane);
-        if (k > 0) d += q(p - plane - 1);
-        if (j > 0) {
-          d += q(p - plane - row);
-          if (k > 0) d -= q(p - plane - row - 1);
-        }
-      }
-    }
-    return to_code(static_cast<int>(d), zigzag);
-  }
 };
 
 template <typename Src>
@@ -112,15 +45,8 @@ encode_tiles(Src src, uint32_t* __restrict__ bitflags, uint16_t* __restrict__ pa
 
   // quantize + bitshuffle: a warp takes 32 codes (two groups) at a time
   for (int c = warp; c < TILE / 32; c += WARPS) {
-    const unsigned code = src.code(t * TILE + c * 32 + lane);
-    unsigned mine = 0;
-#pragma unroll
-    for (int w = 0; w < 16; ++w) {
-      const unsigned m = __brev(__ballot_sync(0xffffffffu, (code >> (15 - w)) & 1u));
-      const unsigned word = lane < 16 ? (m >> 16) : (m & 0xFFFFu);
-      if ((lane & 15) == w) mine = word;
-    }
-    sh[(lane & 15) * GROUPS_PER_TILE + 2 * c + (lane >> 4)] = static_cast<uint16_t>(mine);
+    const unsigned word = shuffle_warp(src.code(t * TILE + c * 32 + lane));
+    sh[(lane & 15) * GROUPS_PER_TILE + 2 * c + (lane >> 4)] = static_cast<uint16_t>(word);
   }
   __syncthreads();
 

@@ -64,19 +64,12 @@ decode_tiles(const uint32_t* __restrict__ bitflags, const uint16_t* __restrict__
   }
   __syncthreads();
 
-  // unshuffle: lane l holds word (plane l & 15) of group 2c + (l >> 4); the
-  // ballot over bit k of the words gives element 15 - k of both groups
+  // unshuffle: lane l holds word (plane l & 15) of group 2c + (l >> 4)
   for (int c = warp; c < TILE / 32; c += WARPS) {
-    const unsigned word = sh[(lane & 15) * GROUPS_PER_TILE + 2 * c + (lane >> 4)];
-    unsigned mine = 0;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const unsigned m = __brev(__ballot_sync(0xffffffffu, (word >> k) & 1u));
-      const unsigned code = lane < 16 ? (m >> 16) : (m & 0xFFFFu);
-      if ((lane & 15) == 15 - k) mine = code;
-    }
+    const unsigned code =
+        unshuffle_warp(sh[(lane & 15) * GROUPS_PER_TILE + 2 * c + (lane >> 4)]);
     const int p = t * TILE + c * 32 + lane;
-    if (p < n) delta[p] = from_code(mine, zigzag);
+    if (p < n) delta[p] = from_code(code, zigzag);
   }
 }
 

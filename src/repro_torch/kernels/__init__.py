@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels of the port (csrc/), their wrappers and plain versions.
 
+    lorenzo_quant    -- K1 lorenzo_quant wrapper (staged route)
+    bitshuffle_flag  -- K2 bitshuffle_flag and K3 bitunshuffle_tiles wrappers (staged)
     fused_compress   -- K4 fused_compress and K5 fused_shuffle_encode wrappers
     fused_decode     -- K6 fused_decompress wrapper
-    ops              -- the fused route of the compressor (outlier routing)
+    ops              -- the fused and staged routes of the compressor (outlier routing)
     ref              -- plain PyTorch versions, used for CPU tensors and as oracles
     build            -- nvcc build at first use + ctypes binding
 
@@ -10,10 +12,15 @@ Nothing is compiled when this package is imported.
 """
 from __future__ import annotations
 
+from .bitshuffle_flag import bitshuffle_flag, bitunshuffle_tiles
 from .fused_compress import fused_compress, fused_shuffle_encode
 from .fused_decode import fused_decompress
+from .lorenzo_quant import lorenzo_quant
 
 WRAPPERS = {
+    "lorenzo_quant": lorenzo_quant,
+    "bitshuffle_flag": bitshuffle_flag,
+    "bitunshuffle_tiles": bitunshuffle_tiles,
     "fused_compress": fused_compress,
     "fused_shuffle_encode": fused_shuffle_encode,
     "fused_decompress": fused_decompress,

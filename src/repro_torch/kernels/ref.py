@@ -3,9 +3,14 @@
 Each function computes exactly what its kernel computes, the way
 ``repro.kernels.ref`` composes the reference stages into oracles:
 
+* K1 ``lorenzo_quant``:        to_codes(lorenzo_delta(prequantize(data)))
+* K2 ``bitshuffle_flag``:      bitshuffle(codes), block_flags(...) as bytes
+* K3 ``bitunshuffle_tiles``:   bitunshuffle(words)
 * K4 ``fused_compress``:       encode(bitshuffle(pad(quantize(data))))
 * K5 ``fused_shuffle_encode``: encode(bitshuffle(codes))
 * K6 ``fused_decompress``:     dual_dequantize(bitunshuffle(decode(...)))
+
+K1-K3 return the reference kernels' ``uint16``/``uint8`` results.
 
 The kernel wrappers run these for CPU tensors; the tests and
 ``chip_smoke.py`` hold the kernels against them on the card.
@@ -18,14 +23,30 @@ from ..core import encode as enc
 from ..core import quant, shuffle
 
 TILE = shuffle.TILE
+BLOCKS_PER_TILE = TILE // enc.BLOCK_WORDS    # 512
 
 
 def lorenzo_quant_ref(data: torch.Tensor, eb: torch.Tensor, *,
                       code_mode: str = "sign_mag") -> torch.Tensor:
-    """Pre-quantization + Lorenzo + saturating codes (no outlier channel)."""
+    """Pre-quantization + Lorenzo + saturating codes (no outlier channel) -> uint16."""
     codes, _, _ = quant.to_codes(quant.lorenzo_delta(quant.prequantize(data, eb)),
                                  code_mode=code_mode)
-    return codes
+    return codes.to(torch.uint16)
+
+
+def bitshuffle_flag_ref(codes_tiles: torch.Tensor):
+    """(n_tiles, TILE) codes -> (shuffled (n_tiles, TILE) uint16, flags (n_tiles, 512) uint8);
+    flag b of a tile covers its shuffled words [8b, 8b + 8)."""
+    n_tiles = codes_tiles.shape[0]
+    shuffled = shuffle.bitshuffle(codes_tiles.reshape(-1))
+    flags = enc.block_flags(shuffled).reshape(n_tiles, BLOCKS_PER_TILE)
+    return shuffled.reshape(n_tiles, TILE).to(torch.uint16), flags.to(torch.uint8)
+
+
+def bitunshuffle_ref(shuffled_tiles: torch.Tensor) -> torch.Tensor:
+    """(n_tiles, TILE) shuffled words -> (n_tiles, TILE) uint16 codes in their order."""
+    n_tiles = shuffled_tiles.shape[0]
+    return shuffle.bitunshuffle(shuffled_tiles.reshape(-1)).reshape(n_tiles, TILE).to(torch.uint16)
 
 
 def fused_compress_ref(data: torch.Tensor, eb: torch.Tensor, *, capacity: int,

@@ -93,6 +93,71 @@ def test_fused_decompress_matches_plain(cuda, shape, code_mode, capacity_frac, o
     assert _equal(got, want)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("code_mode", ["sign_mag", "zigzag"])
+def test_lorenzo_quant_matches_plain(cuda, shape, dtype, code_mode):
+    x = _field(shape).to(dtype).to(cuda)
+    eb = torch.tensor(1e-4, device=cuda) * (x.float().amax() - x.float().amin())
+    got = kernels.lorenzo_quant(x, eb, code_mode=code_mode)
+    assert got.dtype == torch.uint16 and got.shape == x.shape
+    assert _equal(got, ref.lorenzo_quant_ref(x, eb, code_mode=code_mode))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bitshuffle_flag_and_unshuffle_match_plain(cuda, shape):
+    rng = np.random.default_rng(2)
+    n = int(np.prod(shape))
+    codes = torch.from_numpy(rng.geometric(0.3, size=n).astype(np.int32) - 1)
+    tiles = shuffle.pad_to_tiles(codes).to(torch.uint16).reshape(-1, shuffle.TILE).to(cuda)
+    got = kernels.bitshuffle_flag(tiles)
+    want = ref.bitshuffle_flag_ref(tiles)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _equal(g, w)
+    back = kernels.bitunshuffle_tiles(got[0])
+    assert _equal(back, ref.bitunshuffle_ref(got[0]))
+    assert _equal(back, tiles)
+
+
+@pytest.mark.parametrize("exact_outliers", [True, False])
+def test_staged_entry_points_launch_the_staged_kernels(cuda, exact_outliers):
+    x = _field((9, 33, 70), seed=3)
+    cfg = FZConfig(eb=1e-3, exact_outliers=exact_outliers, kernel_mode="staged")
+    kernels.reset_launch_counts()
+    c = compress(x, cfg)
+    y = decompress(c, cfg)
+    counts = kernels.launch_counts()
+    assert counts == {"lorenzo_quant": 0 if exact_outliers else 1, "bitshuffle_flag": 1,
+                      "bitunshuffle_tiles": 1, "fused_compress": 0,
+                      "fused_shuffle_encode": 0, "fused_decompress": 0}
+    plain = FZConfig(eb=1e-3, exact_outliers=exact_outliers, use_kernels=False)
+    c0 = compress(x, plain)
+    for f in c.FIELDS:
+        assert _equal(getattr(c, f), getattr(c0, f)), f
+    assert _equal(y, decompress(c0, plain))
+
+
+@pytest.mark.parametrize("entropy", [False, True, "auto"])
+def test_cold_and_batch_forms_on_the_card(cuda, entropy):
+    from repro_torch import (compress_batch_with_eb, compress_with_eb, decompress_batch,
+                             decompress_bytes, to_bytes)
+    x = _field((9, 33, 70), seed=6)
+    cfg = FZConfig(eb=1e-4)
+    c = compress(x, cfg)
+    kernels.reset_launch_counts()
+    y = decompress_bytes(to_bytes(c, cfg, entropy=entropy))
+    assert kernels.launch_counts()["fused_decompress"] == 1
+    assert y.device.type == "cuda" and _equal(y, decompress(c, cfg))
+    rows = _field((4, 5000), seed=7)
+    cb = compress_batch_with_eb(rows, 1e-3, cfg)
+    yb = decompress_batch(cb, cfg)
+    for i in range(rows.shape[0]):
+        one = compress_with_eb(rows[i], 1e-3, cfg)
+        for f in c.FIELDS:
+            assert _equal(getattr(cb, f)[i], getattr(one, f)), (i, f)
+        assert _equal(yb[i], decompress(one, cfg))
+
+
 @pytest.mark.parametrize("exact_outliers", [True, False])
 def test_entry_points_launch_the_kernels(cuda, exact_outliers):
     x = _field((9, 33, 70), seed=3)

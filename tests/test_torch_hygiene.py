@@ -4,7 +4,8 @@
   reference package ``repro`` (an AST walk, and an import in a subprocess
   where both are blocked).
 * The entry points raise without a card unless given ``device="cpu"``.
-* ``kernel_mode="staged"`` raises ``NotImplementedError`` until K1-K3 are ported.
+* ``kernel_mode="staged"`` runs on the CPU on request, through the plain
+  versions of K1-K3.
 * A kernel wrapper takes its plain version only for a CPU tensor and never
   falls back for any other device; nothing is built on import.
 * ``chip_smoke.py`` fails, and prints no result, without a card or outside
@@ -22,7 +23,8 @@ import torch
 
 import repro_torch as rt
 from repro_torch import interop, kernels
-from repro_torch.kernels import build
+from repro_torch.core import shuffle
+from repro_torch.kernels import build, ref
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -77,6 +79,15 @@ ENTRY_POINTS = {
     "from_reference": lambda x, c: interop.from_reference(interop.to_numpy(c), c.shape,
                                                           c.dtype_name),
     "resolve_device": lambda x, c: rt.resolve_device(),
+    "compress_batch_with_eb": lambda x, c: rt.compress_batch_with_eb(
+        np.stack([x, x]), 1e-3, rt.FZConfig()),
+    "decompress_batch": lambda x, c: rt.decompress_batch(
+        rt.compress_batch_with_eb(np.stack([x, x]), 1e-3, rt.FZConfig(), device="cpu"),
+        rt.FZConfig()),
+    "tree_compress": lambda x, c: rt.tree_compress({"x": torch.from_numpy(x)}, rt.FZConfig()),
+    "tree_decompress": lambda x, c: rt.tree_decompress({"c": c}, rt.FZConfig()),
+    "from_bytes": lambda x, c: rt.from_bytes(rt.to_bytes(c, rt.FZConfig())),
+    "decompress_bytes": lambda x, c: rt.decompress_bytes(rt.to_bytes(c, rt.FZConfig())),
 }
 
 
@@ -104,17 +115,35 @@ def test_defaults_take_the_kernel_route():
     assert rt.ARCH == "sm_90a"
 
 
+@pytest.mark.parametrize("exact_outliers", [True, False])
 @pytest.mark.parametrize("op", ["compress", "decompress"])
-def test_staged_mode_is_not_ported_yet(op):
-    x, c = _container()
-    cfg = rt.FZConfig(kernel_mode="staged")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if op == "compress":
-            rt.compress(x, cfg, device="cpu")
-        else:
-            rt.decompress(c, cfg, device="cpu")
-    # the plain route does not need the staged kernels
-    rt.compress(x, rt.FZConfig(kernel_mode="staged", use_kernels=False), device="cpu")
+def test_staged_route_runs_on_the_cpu_on_request(monkeypatch, op, exact_outliers):
+    """``kernel_mode="staged"`` goes through the staged wrappers (their plain
+    versions on the CPU: K1 in paper mode, K2 to compress, K3 to decompress)
+    and through none of the fused ones, and equals the plain route."""
+    x, _ = _container()
+    calls = []
+    for name in ("lorenzo_quant_ref", "bitshuffle_flag_ref", "bitunshuffle_ref",
+                 "fused_compress_ref", "fused_shuffle_encode_ref", "fused_decompress_ref"):
+        def spy(*args, _name=name, _fn=getattr(ref, name), **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(ref, name, spy)
+    cfg = rt.FZConfig(kernel_mode="staged", exact_outliers=exact_outliers)
+    plain = rt.FZConfig(use_kernels=False, exact_outliers=exact_outliers)
+    c = rt.compress(x, cfg, device="cpu")
+    c0 = rt.compress(x, plain, device="cpu")
+    if op == "compress":
+        want = ["bitshuffle_flag_ref"] if exact_outliers else ["lorenzo_quant_ref",
+                                                               "bitshuffle_flag_ref"]
+        assert calls == want
+        for f in c.FIELDS:
+            assert torch.equal(getattr(c, f), getattr(c0, f)), f
+    else:
+        calls.clear()
+        y = rt.decompress(c, cfg, device="cpu")
+        assert calls == ["bitunshuffle_ref"]
+        assert torch.equal(y, rt.decompress(c0, plain, device="cpu"))
 
 
 def test_unknown_kernel_mode_is_rejected():
@@ -129,12 +158,17 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_nothing():
     bf, pl, nnz = kernels.fused_compress(x, eb, capacity=1000)
     kernels.fused_shuffle_encode(torch.zeros(4096, dtype=torch.uint16), capacity=10)
     kernels.fused_decompress(bf, pl, eb, shape=(90, 100))
+    codes = kernels.lorenzo_quant(x, eb)
+    shuffled, _ = kernels.bitshuffle_flag(
+        shuffle.pad_to_tiles(codes.reshape(-1)).reshape(-1, 4096))
+    kernels.bitunshuffle_tiles(shuffled)
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
     assert not build._loaded
 
 
 @pytest.mark.parametrize("wrapper", ["fused_compress", "fused_shuffle_encode",
-                                     "fused_decompress"])
+                                     "fused_decompress", "lorenzo_quant", "bitshuffle_flag",
+                                     "bitunshuffle_tiles"])
 def test_wrappers_never_fall_back_on_other_devices(wrapper):
     meta = torch.device("meta")
     eb = torch.tensor(1e-3, device=meta)
@@ -146,6 +180,11 @@ def test_wrappers_never_fall_back_on_other_devices(wrapper):
         "fused_decompress": lambda: kernels.fused_decompress(
             torch.empty(16, dtype=torch.uint32, device=meta),
             torch.empty(4, 8, dtype=torch.uint16, device=meta), eb, shape=(100,)),
+        "lorenzo_quant": lambda: kernels.lorenzo_quant(torch.empty(100, device=meta), eb),
+        "bitshuffle_flag": lambda: kernels.bitshuffle_flag(
+            torch.empty(2, 4096, dtype=torch.uint16, device=meta)),
+        "bitunshuffle_tiles": lambda: kernels.bitunshuffle_tiles(
+            torch.empty(2, 4096, dtype=torch.uint16, device=meta)),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[wrapper]()
@@ -156,7 +195,7 @@ def test_build_targets_sm90a_without_fast_math(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert build.library_path("fz_compress.cu").parent == rt.BUILD_DIR
-    assert build.library_path("fz_compress.cu") != build.library_path("fz_decompress.cu")
+    assert len({build.library_path(s) for s in build.SOURCES}) == len(build.SOURCES) == 3
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
