@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's FZ compressor end to end on one CUDA card.
+"""Drive the PyTorch/CUDA port end to end on one CUDA card: the FZ compressor and
+the serving path (Yi-6B over the paged FZ KV pool with K7 flash-decode).
 
     python3 chip_smoke.py          # from the root of the repository, on a card
 
@@ -33,7 +34,41 @@ Phases (each prints its own lines):
      above 0 on its path;
   6. CUDA-event times at (100, 500, 500): each kernel, its plain version and
      its bound; compress/decompress GB/s and ratio of the fused, staged and
-     plain routes.
+     plain routes;
+  7. K7 flash-decode against its plain version on the card at 2e-4 (float32
+     sums in another order): the serving geometry (KVH 4, G 8, D 128, pages
+     of 64, bfloat16, 4 lanes, lengths 0 / mid-page / page-aligned / full),
+     small odd shapes (page 7, D 64, G 1 and 4, float32 and bfloat16,
+     shard_offset > 0, length past the slice) and the contiguous entry; fully
+     masked rows exactly (m, num, den) = (-1e30, 0, 0);
+  8. the serving path at Yi-6B's full config (32 layers, d_model 4096,
+     random bfloat16 weights from a torch.Generator seeded 0 on the card): an
+     8-request tracegen trace through ``Engine.serve`` with the paged FZ KV
+     pool (24 slots of 64 tokens, 4 lanes), once on the kernel route (K7,
+     K4, K6) and once on the plain route. Every request completes, the pool
+     drains, the trace preempts and reads cold pages, K7 launches once per
+     layer per decode step, every parked page is within the error bound and
+     the two routes' TraceStats are identical. Tokens: at every
+     decode step of the plain run the kernel route's decode runs on the same
+     cache and tokens (teacher-forced); its greedy token must agree with the
+     plain route's in >= 90% of lane-steps, and every disagreement must lie
+     at a near tie (the plain logits' top-2 gap no larger than the largest
+     logit difference between the routes). The free-running agreement of
+     the two runs is reported beside that of two plain routes (paged
+     partials vs contiguous), not gated: once one greedy token differs the
+     rest of the request differs, and bfloat16 logits of random weights
+     over a 64000-word vocabulary tie often. On one gathered page set the
+     kernel route's decode logits are held against the plain route's;
+  9. the whole-cache path at Yi-6B: ``Engine.generate`` with the cache parked
+     (K4) and resumed (K6) between steps, batch 2, prompt 512, 16 tokens;
+  10. serving times: tokens/s and ms per decode step, a torch.profiler split
+     of one decode step (K7, the page gather, cold-page K6 decodes, the
+     matmuls), and K7's time, plain time, byte bound and the
+     ``scaled_dot_product_attention`` yardstick (never called by the port).
+
+bfloat16 GEMMs are set to reduce in float32
+(``allow_bf16_reduced_precision_reduction = False``), as the reference's
+``dense`` accumulates; the port's modules change no global state.
 
 The last three lines are the card's name and power limit, a JSON line of the
 kernels and ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -61,7 +96,35 @@ OPS_PER_CODE = {"lorenzo_quant": 12, "bitshuffle_flag": 20, "bitunshuffle_tiles"
                 "fused_compress": 32, "fused_shuffle_encode": 20, "fused_decompress": 24}
 KERNEL_PATH = {"lorenzo_quant": "staged", "bitshuffle_flag": "staged",
                "bitunshuffle_tiles": "staged", "fused_compress": "fused",
-               "fused_shuffle_encode": "fused", "fused_decompress": "fused"}
+               "fused_shuffle_encode": "fused", "fused_decompress": "fused",
+               "flash_decode": "serving"}
+K7_TOL = 2e-4              # K7 vs its plain version: float32 sums in another order
+# K7 cases: B, H, KVH, D, pages P (or slice length S), page size (0: the
+# contiguous entry), dtype, lengths, kv_tile, shard_offset
+K7_CASES = [
+    (4, 32, 4, 128, 13, 64, "bfloat16", [0, 100, 128, 832], None, 0),   # serving geometry
+    (4, 32, 4, 128, 13, 64, "float32", [700, 31, 64, 1], None, 0),
+    (3, 4, 4, 64, 5, 7, "float32", [0, 20, 35], None, 0),               # ps 7, G 1
+    (3, 4, 1, 64, 5, 7, "bfloat16", [3, 40, 36], None, 0),              # G 4
+    (2, 8, 2, 64, 50, 0, "float32", [60, 17], 16, 7),                   # offset, overlong
+    (2, 8, 8, 64, 50, 0, "bfloat16", [0, 49], None, 0),
+    (3, 16, 4, 128, 300, 0, "bfloat16", [300, 250, 0], 128, 0),
+]
+# the serving trace and pool (Yi-6B full config, cut in depth of nothing)
+SERVE_TRACE = dict(seed=0, n_requests=8, vocab=64000, n_templates=2, template_len=(384, 512),
+                   template_reuse=0.6, suffix_len=(64, 256), n_new=(16, 32),
+                   priorities=(0, 1), arrival_rate=1.0)
+# num_pages 24 forced no preemption on this trace (the schedule does not depend on
+# the data, so the port's scheduler shows it on the CPU); 12 forces one
+SERVE_POOL = dict(page_size=64, seq_capacity=832, num_pages=12, cold_after=2, eb=1e-4)
+SERVE_LANES = 4
+TOKEN_AGREEMENT = 0.9      # the reference's own bar (tests/test_kvpool.py), held per step
+LOGIT_REL_TOL = 0.05       # teacher-forced logits, kernel vs plain route: 5% of max|logit|
+SCHED_FIELDS = ("decode_steps", "admissions", "preemptions", "resumes", "completed",
+                "tiered_pages", "pool_compressions", "pool_decompressions", "prefix_hits",
+                "prefill_tokens", "prefill_tokens_saved", "cow_promotions",
+                "shared_cold_reads_deduped", "decompress_dispatches", "ttft_steps",
+                "itl_steps")
 FIXTURES = ("tests/data/container_v1_plain.bin", "tests/data/container_v1_entropy.bin",
             "tests/data/legacy_stream.bin")
 
@@ -88,6 +151,332 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms) -> dict:
+    """Phases 7-10: K7 against its plain version, the Yi-6B serving trace on both
+    routes, the whole-cache path and the serving times. Returns K7's row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs, kernels
+    from repro_torch.core import fz
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.models import zoo
+    from repro_torch.serve import Engine, KVCompressionConfig, PoolConfig
+    from repro_torch.serve.kvpool import ContinuousBatcher, tracegen
+
+    # -- 7. K7 against its plain version ---------------------------------------
+    t0 = time.time()
+    g = torch.Generator().manual_seed(7)
+    for B, H, KVH, D, P, ps, dtype, lengths, tile, off in K7_CASES:
+        dt = getattr(torch, dtype)
+        q = torch.randn(B, H, D, generator=g).to(dev)
+        shape = (B, P, ps, KVH, D) if ps else (B, P, KVH, D)
+        k, v = (torch.randn(*shape, generator=g).to(dt).to(dev) for _ in range(2))
+        length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q4 = fd.prep_q(q, KVH)
+        if ps:
+            le = fd.length_eff(length, 0, P * ps)
+            got = fd.decode_partials_pages(q, k, v, length)
+            want = ref.flash_decode_ref(q4, k, v, le)
+        else:
+            tl = min(tile or fd.KV_TILE, P)
+            T = -(-P // tl)
+            le = fd.length_eff(length, off, P)
+            got = fd.decode_partials(q, k, v, length, kv_tile=tile, shard_offset=off)
+            pad = (0, 0, 0, 0, 0, T * tl - P)
+            want = ref.flash_decode_ref(q4, F.pad(k, pad).reshape(B, T, tl, KVH, D),
+                                        F.pad(v, pad).reshape(B, T, tl, KVH, D), le)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        max_err["flash_decode"] = max(max_err["flash_decode"], err)
+        what = f"B={B} H={H} KVH={KVH} D={D} {'pages ' + str(P) + 'x' + str(ps) if ps else 'S=' + str(P)} {dtype} lengths={lengths} kv_tile={tile} offset={off}"
+        if not err <= K7_TOL:
+            raise AssertionError(f"K7 differs from its plain version by {err} at {what}")
+        for b, n in enumerate(lengths):
+            if n - off <= 0 and not (bool((got[0][b] == fd.NEG_INF).all())
+                                     and bool((got[1][b] == 0).all())
+                                     and bool((got[2][b] == 0).all())):
+                raise AssertionError(f"K7 fully masked row {b} is not (-1e30, 0, 0) at {what}")
+        say(7, f"K7 == plain within {err:.3g} (tolerance {K7_TOL}) at {what}")
+    say(7, f"K7 cases done in {time.time() - t0:.1f} s")
+
+    # -- 8. the serving path at Yi-6B ------------------------------------------
+    t0 = time.time()
+    cfg = configs.get("yi-6b")
+    model = zoo.build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    say(8, f"Yi-6B full config ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+           f"heads, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}): "
+           f"{n_params} parameters, {n_params * 2 / 1e9:.2f} GB bf16, random from "
+           f"torch.Generator seed 0 on the card in {time.time() - t0:.1f} s")
+    trace_cfg = tracegen.TraceGenConfig(**SERVE_TRACE)
+    reqs = tracegen.generate(trace_cfg)
+    say(8, "trace: " + ", ".join(f"req {r.req_id}: prompt {len(r.tokens)} new {r.n_new} "
+                                 f"prio {r.priority} at {r.arrive_at}" for r in reqs))
+
+    def serve(use_kernels, parked=None, teacher=None, paged=None):
+        """The trace through ``Engine.serve`` on one route. ``parked`` collects each
+        parked page's raw data; ``teacher`` collects, at each step of the plain
+        contiguous decode, the kernel route's decode on the same cache and tokens;
+        ``paged`` overrides the decode wiring (the plain paged partials)."""
+        eng = Engine(model, params, pool=PoolConfig(**SERVE_POOL, use_kernels=use_kernels),
+                     device=dev)
+        pool = eng.make_pool()
+        if parked is not None:
+            store = pool._park_store
+
+            def park_store(page, comp):
+                parked.append((pool.slots[page.slot].clone(), comp, pool.eb_abs))
+                store(page, comp)
+            pool._park_store = park_store
+        if teacher is not None:
+            step = eng.decode_step
+
+            def decode_step(cache, tokens):
+                logits, new_cache = step(cache, tokens)
+                L, B, S, KVH, hd = cache["k"].shape
+                ps = SERVE_POOL["page_size"]
+                pages = {"k": cache["k"].reshape(L, B, S // ps, ps, KVH, hd),
+                         "v": cache["v"].reshape(L, B, S // ps, ps, KVH, hd),
+                         "length": cache["length"]}
+                lk, _ = model.decode_paged(params, pages, tokens, use_kernels=True)
+                act = cache["length"] > 0
+                lp, lk = logits.float()[act], lk.float()[act]
+                top2 = lp.topk(2, dim=-1).values
+                differ = lk.argmax(-1) != lp.argmax(-1)
+                teacher.append((int(act.sum()), int(differ.sum()),
+                                float((lk - lp).abs().max()),
+                                (top2[:, 0] - top2[:, 1])[differ].tolist()))
+                return logits, new_cache
+            eng.decode_step = decode_step
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if paged is None:
+            out, stats, pool = eng.serve(tracegen.generate(trace_cfg), max_batch=SERVE_LANES,
+                                         pool=pool)
+        else:
+            batcher = ContinuousBatcher(eng, pool, max_batch=SERVE_LANES)
+            batcher.paged_decode = paged
+            out, stats = batcher.run(tracegen.generate(trace_cfg))
+        torch.cuda.synchronize()
+        return out, stats, pool, time.perf_counter() - t
+
+    parked = []
+    out_k, st_k, pool_k, wall_k = drive("serving", lambda: serve(True, parked))
+    launches = path_launches["serving"]
+    n_tok = sum(len(v) for v in out_k.values())
+    say(8, f"{card} | kernel route: {st_k.completed} requests, {n_tok} tokens in "
+           f"{st_k.decode_steps} decode steps, {wall_k:.2f} s ({n_tok / wall_k:.1f} tokens/s, "
+           f"{1e3 * wall_k / st_k.decode_steps:.1f} ms a decode step, prefills included); "
+           f"{st_k.admissions} admissions, {st_k.preemptions} preemptions, {st_k.resumes} "
+           f"resumes, {st_k.tiered_pages} tiered pages, {st_k.pool_compressions} compressions, "
+           f"{st_k.pool_decompressions} cold reads, {st_k.prefix_hits} prefix hits, "
+           f"{st_k.cow_promotions} CoW; latency (steps) {tracegen.latency_summary(st_k)}; "
+           f"launches {launches}")
+    if st_k.completed != len(reqs) or pool_k.pages or pool_k.n_free_slots() != pool_k.cfg.num_pages:
+        raise AssertionError("the serving trace did not complete and drain the pool")
+    if st_k.preemptions < 1 or st_k.pool_decompressions < 1 or st_k.tiered_pages < 1:
+        raise AssertionError("the serving trace forced no preemption, tiering or cold read: "
+                             "lower num_pages")
+    if launches["flash_decode"] != st_k.decode_steps * cfg.n_layers:
+        raise AssertionError(f"K7 launched {launches['flash_decode']} times, not decode steps "
+                             f"x layers = {st_k.decode_steps * cfg.n_layers}")
+    if launches["fused_compress"] <= 0 or launches["fused_decompress"] <= 0:
+        raise AssertionError("the pool did not compress through K4 and read through K6")
+    plain_fz = fz.FZConfig(exact_outliers=False, use_kernels=False)
+    worst = 0.0
+    for raw, comp, eb_abs in parked:
+        x = raw.reshape(-1).float()
+        rec = fz.decompress(comp, plain_fz)
+        err, eb = float((x - rec).abs().max()), float(eb_abs)
+        limit = eb * (1 + 2**-20) + float(x.abs().max()) * 2**-22
+        if not err <= limit:
+            raise AssertionError(f"a parked page breaks the error bound: max_err {err} > {limit}")
+        worst = max(worst, err / eb)
+    say(8, f"all {len(parked)} parked pages within the bound (eb_abs {float(parked[0][2]):.4g}; "
+           f"worst max_err/eb {worst:.6f})")
+    del parked
+
+    out_p, st_p, _, wall_p = serve(False)
+    for f in SCHED_FIELDS:
+        if getattr(st_p, f) != getattr(st_k, f):
+            raise AssertionError(f"TraceStats.{f} differs: kernel {getattr(st_k, f)} vs plain "
+                                 f"{getattr(st_p, f)}")
+    if st_p != st_k:
+        raise AssertionError(f"TraceStats differ: kernel {st_k} vs plain {st_p}")
+    say(8, f"{card} | plain route: {wall_p:.2f} s ({n_tok / wall_p:.1f} tokens/s); TraceStats "
+           f"identical, every scheduling count and the byte high-water marks (used / demand / "
+           f"logical): kernel {st_k.high_water_used_bytes} / {st_k.high_water_demand_bytes} / "
+           f"{st_k.high_water_logical_bytes}, plain {st_p.high_water_used_bytes} / "
+           f"{st_p.high_water_demand_bytes} / {st_p.high_water_logical_bytes}")
+
+    def agreement(a, b):
+        return float(np.mean([float((a[i] == b[i]).mean()) for i in a]))
+
+    teacher = []
+    out_t, _, _, _ = serve(False, teacher=teacher)
+    out_pp, _, _, _ = serve(False, paged=True)
+    steps = sum(n for n, _, _, _ in teacher)
+    differ = sum(d for _, d, _, _ in teacher)
+    d_max = max(d for _, _, d, _ in teacher)
+    gaps = sorted(g for _, _, _, gs in teacher for g in gs)
+    tf_agree = 1 - differ / steps
+    say(8, f"{card} | tokens, teacher-forced (the kernel route's decode on the plain run's cache "
+           f"and tokens at every step): same greedy token in {tf_agree:.4f} of {steps} "
+           f"lane-steps (bar {TOKEN_AGREEMENT}); top-2 gaps of the plain logits where they "
+           f"differ {gaps}; max|logits kernel - plain| {d_max:.4g}. Free-running (not gated): "
+           f"kernel vs plain route {agreement(out_k, out_p):.4f}; two plain routes, paged "
+           f"partials vs contiguous, {agreement(out_pp, out_p):.4f}")
+    if agreement(out_t, out_p) != 1.0:
+        raise AssertionError("the teacher-forced plain run is not the plain run")
+    if tf_agree < TOKEN_AGREEMENT:
+        raise AssertionError(f"teacher-forced token agreement {tf_agree} < {TOKEN_AGREEMENT}")
+    if gaps and gaps[-1] > d_max:
+        raise AssertionError(f"the routes pick different tokens at a top-2 gap of {gaps[-1]}, "
+                             f"beyond the logit difference {d_max}: not a near tie")
+
+    # one gathered page set: 4 lanes, the first 4 prompts, the older half of each
+    # sequence's pages parked (cold)
+    eng_k = Engine(model, params, pool=PoolConfig(**SERVE_POOL), device=dev)
+    eng_p = Engine(model, params, pool=PoolConfig(**SERVE_POOL, use_kernels=False), device=dev)
+    pool = PoolConfig(**{**SERVE_POOL, "num_pages": 64})
+    pool = Engine(model, params, pool=pool, device=dev).make_pool()
+    first = []
+    for i, r in enumerate(reqs[:SERVE_LANES]):
+        logits, cache = eng_k.prefill({"tokens": torch.as_tensor(r.tokens, device=dev)[None]})
+        pool.write_prefill(i, cache["k"], cache["v"], len(r.tokens), step=0)
+        pids = [p.page_id for p in pool.pages_of(i)]
+        pool.compress_pages(pids[: len(pids) // 2])
+        first.append(int(torch.argmax(logits[0])))
+    lanes = list(range(SERVE_LANES))
+    tokens = torch.tensor(first, dtype=torch.int32, device=dev)
+    pages = pool.gather_pages(lanes)
+    lk, (kk, vk) = eng_k.decode_step_paged(pages, tokens)
+    lp, (kp, vp) = eng_p.decode_step_paged(pages, tokens)
+    lc, _ = eng_p.decode_step(pool.gather(lanes), tokens)
+    scale = float(lp.float().abs().max())
+    d_kp = float((lk.float() - lp.float()).abs().max())
+    d_kc = float((lk.float() - lc.float()).abs().max())
+    same_top = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    say(8, f"teacher-forced decode step on {SERVE_LANES} lanes (lengths "
+           f"{pages['length'].tolist()}, {sum(p.state == 'compressed' for p in pool.pages.values())}"
+           f" cold pages): max|logits kernel - plain paged| {d_kp:.4g}, kernel - plain "
+           f"contiguous {d_kc:.4g}, max|logit| {scale:.4g} (tolerance {LOGIT_REL_TOL} x max|logit|"
+           f"); same argmax in {same_top:.2f} of lanes; step K/V max diff "
+           f"{float((kk.float() - kp.float()).abs().max()):.4g}")
+    if not (d_kp <= LOGIT_REL_TOL * scale and d_kc <= LOGIT_REL_TOL * scale):
+        raise AssertionError("teacher-forced logits of the kernel route differ from the plain "
+                             "route beyond the tolerance")
+    say(8, f"serving phase done in {time.time() - t0:.1f} s")
+
+    # -- 9. the whole-cache path -------------------------------------------------
+    t0 = time.time()
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 512), dtype=np.int32)}
+    eng_w = Engine(model, params, kv_compress=KVCompressionConfig(enabled=True, eb=1e-4),
+                   device=dev)
+    toks_w, cache_w = drive("whole-cache",
+                            lambda: eng_w.generate(batch, 16, park_between=True))
+    toks_0, _ = eng_w.generate(batch, 16)
+    parked_w = eng_w.park(cache_w)
+    from repro_torch.serve.engine import cache_bytes, compressed_cache_bytes
+    wl = path_launches["whole-cache"]
+    agree_w = float((toks_w == toks_0).float().mean())
+    say(9, f"{card} | whole-cache generate, batch 2, prompt 512, 16 tokens, parked and resumed "
+           f"between steps: tokens {tuple(toks_w.shape)}, agreement with the never-parked run "
+           f"{agree_w:.4f}; cache {cache_bytes(cache_w)} B -> {compressed_cache_bytes(parked_w)}"
+           f" B parked; launches {wl} ({time.time() - t0:.1f} s)")
+    if tuple(toks_w.shape) != (2, 16) or wl["fused_compress"] <= 0 or wl["fused_decompress"] <= 0:
+        raise AssertionError("the whole-cache path did not run through K4 and K6")
+
+    # -- 10. serving times --------------------------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        pg = pool.gather_pages(lanes)
+        return eng_k.decode_step_paged(pg, tokens)
+
+    gather_ms = cuda_ms(lambda: pool.gather_pages(lanes), iters=10)
+    decode_ms = cuda_ms(lambda: eng_k.decode_step_paged(pages, tokens), iters=10)
+    decode_plain_ms = cuda_ms(lambda: eng_p.decode_step_paged(pages, tokens), iters=5)
+    step_ms = cuda_ms(step, iters=10)
+    step()
+    torch.cuda.synchronize()
+    groups = {"K7 flash_decode": ("flash_decode",), "K6 cold-page decode": (
+        "decode_tiles", "add_residuals", "scan_columns", "scan_rows_dequant"),
+        "matmuls": ("gemm", "nvjet", "sm90", "cutlass", "xmma", "cublas", "Kernel2"),
+        "copies (page gather, stacking)": ("copy", "Copy", "cat", "Cat", "stack")}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    split = dict.fromkeys([*groups, "other"], 0.0)
+    top = []
+    for e in prof.key_averages():
+        us = e.self_device_time_total / 3
+        if us <= 0:
+            continue
+        top.append((us, e.key[:60]))
+        name = next((grp for grp, keys in groups.items() if any(k in e.key for k in keys)),
+                    "other")
+        split[name] += us
+    total_us = sum(split.values())
+    say(10, f"{card} | one decode step at Yi-6B, 4 lanes (lengths {pages['length'].tolist()}), "
+            f"{sum(p.state == 'compressed' for p in pool.pages.values())} cold pages: "
+            f"gather_pages {gather_ms:.3f} ms, decode_step_paged {decode_ms:.3f} ms (plain "
+            f"paged {decode_plain_ms:.3f} ms), gather + decode {step_ms:.3f} ms; weight "
+            f"floor {n_params * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    if total_us:
+        say(10, f"{card} | device time of one gather + decode step: " + ", ".join(
+            f"{name} {us / 1e3:.3f} ms ({100 * us / total_us:.1f}%)" for name, us in
+            split.items()) + f"; total {total_us / 1e3:.3f} ms")
+        say(10, "top kernels: " + "; ".join(f"{k} {us:.1f} us" for us, k in
+                                             sorted(top, reverse=True)[:8]))
+    else:
+        say(10, "step split not measured (the profiler saw no device time)")
+
+    # K7 at one layer of the gathered page set, its plain version, bound, yardstick
+    k0, v0, le = pages["k"][0], pages["v"][0], pages["length"]
+    Bq, P, ps, KVH, D = k0.shape
+    q = torch.randn(Bq, cfg.n_heads, D, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev).to(torch.bfloat16)
+    q4 = fd.prep_q(q, KVH)
+    le_eff = fd.length_eff(le, 0, P * ps)
+    k7 = lambda: fd.flash_decode_partials(q4, k0, v0, le_eff)   # noqa: E731
+    ms = device_ms(k7, iters=50)
+    call_ms = cuda_ms(lambda: fd.decode_partials_pages(q, k0, v0, le), iters=50)
+    plain_ms = cuda_ms(lambda: ref.flash_decode_ref(q4, k0, v0, le_eff), iters=10)
+    H = cfg.n_heads
+    valid = int(le.sum())
+    nbytes = 2 * valid * KVH * D * k0.element_size() + q4.numel() * 4 + 2 * Bq * H * 4 \
+        + Bq * H * D * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * valid * H * D / FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    S = P * ps
+    kc = k0.reshape(Bq, S, KVH, D).transpose(1, 2).contiguous()    # (B, KVH, S, D)
+    vc = v0.reshape(Bq, S, KVH, D).transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device=dev)[None, :] < le[:, None].long())[:, None, None, :]
+    qs = q[:, :, None, :]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
+                                                                enable_gqa=True), iters=50)
+    say(10, f"{card} | K7 at one layer of the page set (B {Bq}, {P} pages of {ps}, KVH {KVH}, "
+            f"G {H // KVH}, D {D}, bf16, {valid} valid positions): {ms:.4f} ms on the card "
+            f"({call_ms:.4f} ms a call with the host's share), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}%"
+            f" of bound; scaled_dot_product_attention (enable_gqa, length mask, contiguous K/V) "
+            f"{library_ms:.4f} ms")
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:98",
+            "launches": path_launches["serving"]["flash_decode"],
+            "max_abs_err": max_err["flash_decode"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -101,6 +490,9 @@ def main() -> int:
     from repro_torch.data.fields import make_field
     from repro_torch.kernels import build, ref
 
+    # bfloat16 GEMMs reduce split-K partials in float32, as the reference's
+    # dense accumulates (set here: the port's modules change no global state)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.time()
     dev = torch.device("cuda")
     card = card_line()
@@ -198,7 +590,8 @@ def main() -> int:
     # -- 3. the main paths: fused and staged routes ---------------------------
     # each path's launches: counts set to 0 just before its calls, read just after
     path_launches = {path: dict.fromkeys(kernels.WRAPPERS, 0)
-                     for path in ("fused", "staged", "cold and batch")}
+                     for path in ("fused", "staged", "cold and batch", "serving",
+                                  "whole-cache")}
 
     def drive(path, fn):
         kernels.reset_launch_counts()
@@ -329,8 +722,10 @@ def main() -> int:
     # -- 5. launch counts ------------------------------------------------------
     for path, counts in path_launches.items():
         say(5, f"launches on the {path} path: {counts}")
-    launches = {name: path_launches[KERNEL_PATH[name]][name] for name in kernels.WRAPPERS}
-    for name, count in launches.items():
+    for name in kernels.WRAPPERS:
+        if KERNEL_PATH[name] == "serving":
+            continue                      # phase 8
+        count = path_launches[KERNEL_PATH[name]][name]
         if count <= 0:
             raise AssertionError(f"{name} was not launched on the {KERNEL_PATH[name]} path")
     if path_launches["cold and batch"]["fused_decompress"] <= 0:
@@ -451,7 +846,8 @@ def main() -> int:
         say(6, f"{card} | {name} per call on the card: {breakdown(kern)}")
         src, replaces = sources[name]
         rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-                     "replaces": f"src/repro/kernels/{replaces}", "launches": launches[name],
+                     "replaces": f"src/repro/kernels/{replaces}",
+                     "launches": path_launches[KERNEL_PATH[name]][name],
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     raw = n * 4
@@ -480,7 +876,8 @@ def main() -> int:
                    f"{raw / c_ms / 1e6:.1f} GB/s{card_c}, decompress {d_ms:.3f} ms = "
                    f"{raw / d_ms / 1e6:.1f} GB/s{card_d}, CR {c.compression_ratio():.3f}")
 
-    say(6, f"total {time.time() - t_start:.1f} s")
+    rows.append(serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms))
+    say(10, f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,13 @@
-"""Containers across the two packages, as numpy arrays.
+"""State across the two packages, as numpy arrays.
 
-The compressor has no model weights; the state carried across is the
-container. A container made by the reference (its fields as numpy arrays)
-becomes a port :class:`~repro_torch.core.fz.FZCompressed` with
-:func:`from_reference`, and :func:`to_numpy` gives the reverse, field for
-field with the reference's types. Neither side imports the other.
+* Containers: a container made by the reference (its fields as numpy arrays)
+  becomes a port :class:`~repro_torch.core.fz.FZCompressed` with
+  :func:`from_reference`, and :func:`to_numpy` gives the reverse, field for
+  field with the reference's types.
+* Model weights: :func:`params_from_reference` turns the reference's
+  parameter tree (nested dicts of numpy arrays) into the port's parameters.
+
+Neither side imports the other.
 """
 from __future__ import annotations
 
@@ -36,3 +39,22 @@ def to_numpy(c: FZCompressed) -> dict[str, np.ndarray]:
     """Port container -> its fields as numpy arrays of the reference's types."""
     return {name: getattr(c, name).cpu().numpy().astype(dt, copy=False)
             for name, dt in NUMPY_DTYPES.items()}
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, bit-exact. bfloat16 leaves (``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses) travel as their 16-bit patterns."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_reference(tree, *, device="cuda"):
+    """Reference parameter tree (nested dicts of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) -> the same tree of tensors on
+    ``device``, each leaf bit for bit in its own type."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {key: params_from_reference(val, device=dev) for key, val in tree.items()}
+    return _tensor(np.asarray(tree)).to(dev)

@@ -4,6 +4,8 @@
     bitshuffle_flag  -- K2 bitshuffle_flag and K3 bitunshuffle_tiles wrappers (staged)
     fused_compress   -- K4 fused_compress and K5 fused_shuffle_encode wrappers
     fused_decode     -- K6 fused_decompress wrapper
+    flash_decode     -- K7 flash-decode wrapper (decode attention partials) and its
+                        entry points (contiguous and paged)
     ops              -- the fused and staged routes of the compressor (outlier routing)
     ref              -- plain PyTorch versions, used for CPU tensors and as oracles
     build            -- nvcc build at first use + ctypes binding
@@ -13,6 +15,7 @@ Nothing is compiled when this package is imported.
 from __future__ import annotations
 
 from .bitshuffle_flag import bitshuffle_flag, bitunshuffle_tiles
+from .flash_decode import flash_decode_partials
 from .fused_compress import fused_compress, fused_shuffle_encode
 from .fused_decode import fused_decompress
 from .lorenzo_quant import lorenzo_quant
@@ -24,6 +27,7 @@ WRAPPERS = {
     "fused_compress": fused_compress,
     "fused_shuffle_encode": fused_shuffle_encode,
     "fused_decompress": fused_decompress,
+    "flash_decode": flash_decode_partials,
 }
 
 

@@ -22,7 +22,7 @@ from pathlib import Path
 from ..device import ARCH, BUILD_DIR
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fz_compress.cu", "fz_decompress.cu", "fz_staged.cu")
+SOURCES = ("fz_compress.cu", "fz_decompress.cu", "fz_staged.cu", "flash_decode.cu")
 HEADERS = ("fz_common.cuh",)
 # no --use_fast_math: the kernels need IEEE divides and multiplies
 NVCC_FLAGS = ("-gencode", f"arch=compute_{ARCH[3:]},code={ARCH}", "-std=c++17", "-O3",
@@ -43,6 +43,10 @@ SIGNATURES = {
         "fz_lorenzo_quant": [_P, _I, _I, _L, _L, _L, _P, _I, _P, _P],
         "fz_bitshuffle_flag": [_P, _L, _P, _P, _P],
         "fz_bitunshuffle_tiles": [_P, _L, _P, _P],
+    },
+    "flash_decode.cu": {
+        "fz_flash_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                            _P, _P, _P, _P],
     },
 }
 _RESTYPES = {"fz_decompress_scratch_words": _L}

@@ -9,6 +9,7 @@ Each function computes exactly what its kernel computes, the way
 * K4 ``fused_compress``:       encode(bitshuffle(pad(quantize(data))))
 * K5 ``fused_shuffle_encode``: encode(bitshuffle(codes))
 * K6 ``fused_decompress``:     dual_dequantize(bitunshuffle(decode(...)))
+* K7 ``flash_decode``:         the reference kernel's per-tile online softmax
 
 K1-K3 return the reference kernels' ``uint16``/``uint8`` results.
 
@@ -75,3 +76,37 @@ def fused_decompress_ref(bitflags: torch.Tensor, payload: torch.Tensor, eb: torc
     codes = shuffle.bitunshuffle(words)[:n]
     return quant.dual_dequantize(codes, eb, tuple(shape), code_mode=code_mode,
                                  outlier_idx=outlier_idx, outlier_val=outlier_val)
+
+
+NEG_INF = -1e30          # the reference's finite -inf stand-in (never -inf)
+
+
+def flash_decode_ref(q4: torch.Tensor, k_tiles: torch.Tensor, v_tiles: torch.Tensor,
+                     length_eff: torch.Tensor):
+    """K7's plain version: the Pallas kernel body (``_flash_decode_kernel``) run
+    over the tiles in order.
+
+    q4: (B, KVH, G, D) float32, pre-scaled; k/v_tiles: (B, T, tile, KVH, D);
+    length_eff: (B,) int32. Returns (m, num, den) float32, (B, KVH, G[, D]).
+    """
+    B, KVH, G, D = q4.shape
+    T, tile = k_tiles.shape[1], k_tiles.shape[2]
+    dev = q4.device
+    m = torch.full((B, KVH, G), NEG_INF, dtype=torch.float32, device=dev)
+    num = torch.zeros((B, KVH, G, D), dtype=torch.float32, device=dev)
+    den = torch.zeros((B, KVH, G), dtype=torch.float32, device=dev)
+    length = length_eff.to(torch.int32).reshape(B, 1)
+    for t in range(T):
+        k = k_tiles[:, t].to(torch.float32)                     # (B, tile, KVH, D)
+        v = v_tiles[:, t].to(torch.float32)
+        s = torch.einsum("bhgd,bkhd->bhgk", q4, k)
+        pos = t * tile + torch.arange(tile, dtype=torch.int32, device=dev)
+        valid = (pos[None, :] < length)[:, None, None, :]       # (B, 1, 1, tile)
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)   # empty-tile safety
+        corr = torch.exp(m - m_new)                             # 1 while both are NEG_INF
+        den = den * corr + p.sum(-1)
+        num = num * corr[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, v)
+        m = m_new
+    return m, num, den

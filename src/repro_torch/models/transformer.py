@@ -1,0 +1,220 @@
+"""The dense GQA decoder: the port of ``repro/models/transformer.py`` (dense family).
+
+Pre-RMSNorm, SwiGLU, full RoPE, grouped-query attention. Layer parameters are
+stacked ``[L, ...]`` and every forward pass is a Python loop over the stack.
+Serving entry points mirror the reference one for one:
+
+* ``forward_prefill`` -- prompt -> last-position logits + the K/V cache
+  (``batch["lengths"]`` marks true lengths of right-padded prompts);
+* ``forward_prefill_suffix`` -- a prompt suffix against a cached prefix;
+* ``forward_decode`` -- one token against a contiguous cache;
+* ``forward_decode_paged`` -- one token against the pool's page view, through
+  ``serve/kvpool/attention.paged_decode_attention`` (K7 when ``use_kernels``).
+
+MoE, M-RoPE and training wait for their slices (ROADMAP).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import nn
+from .attention import apply_rope, decode_attention, flash_attention, prefix_attention
+
+CACHE_MARGIN = 128  # decode slots past the prefill length
+
+
+def layer_defs(cfg: ArchConfig) -> dict:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.family} layers are not ported yet "
+                                  "(ROADMAP, queue 1 item 14)")
+    L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
+    qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    return {
+        "attn_norm": nn.Param((L, d), init="ones"),
+        "wq": nn.Param((L, d, qd)),
+        "wk": nn.Param((L, d, kvd)),
+        "wv": nn.Param((L, d, kvd)),
+        "wo": nn.Param((L, qd, d)),
+        "mlp_norm": nn.Param((L, d), init="ones"),
+        "w_gate": nn.Param((L, d, cfg.d_ff)),
+        "w_up": nn.Param((L, d, cfg.d_ff)),
+        "w_down": nn.Param((L, cfg.d_ff, d)),
+    }
+
+
+def model_defs(cfg: ArchConfig) -> dict:
+    return {
+        "embed": nn.Param((cfg.vocab, cfg.d_model), init="embed"),
+        "layers": layer_defs(cfg),
+        "final_norm": nn.Param((cfg.d_model,), init="ones"),
+        "unembed": nn.Param((cfg.d_model, cfg.vocab)),
+    }
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _ffn(lp: dict, h: torch.Tensor) -> torch.Tensor:
+    return nn.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _qkv(lp: dict, h: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor):
+    B, S, _ = h.shape
+    hd = cfg.hd
+    q = nn.dense(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = nn.dense(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = nn.dense(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+
+
+def _logits_at(params: dict, cfg: ArchConfig, x: torch.Tensor,
+               lengths: torch.Tensor) -> torch.Tensor:
+    """Final norm + unembed at position ``lengths - 1`` of each row."""
+    x_last = x[torch.arange(x.shape[0], device=x.device), lengths.to(torch.int64) - 1]
+    return nn.dense(nn.rms_norm(x_last, params["final_norm"], cfg.norm_eps),
+                    params["unembed"])
+
+
+def cache_len(S: int) -> int:
+    return S + CACHE_MARGIN
+
+
+def init_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16, *,
+               device: torch.device) -> dict:
+    kv = (cfg.n_layers, B, cache_len(S), cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device),
+            "length": torch.zeros((B,), dtype=torch.int32, device=device)}
+
+
+def forward_prefill(params: dict, cfg: ArchConfig, batch: dict):
+    """Returns (last-position logits, populated cache).
+
+    Optional ``batch["lengths"]`` (B,) marks true prompt lengths of
+    right-padded ``tokens``: logits are taken at ``lengths - 1`` and the cache
+    length is ``lengths``. Padded positions still write K/V; causal masking
+    keeps true positions exact and decode masks the tail by length.
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = tokens.device
+    x = nn.embed_lookup(tokens, params["embed"])
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = nn.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(lp, h, cfg, pos)
+        o = flash_attention(q, k, v, causal=True)
+        x = x + nn.dense(o.reshape(B, S, -1), lp["wo"])
+        h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(lp, h)
+        pad = (0, 0, 0, 0, 0, CACHE_MARGIN)
+        ks.append(torch.nn.functional.pad(k, pad).to(torch.bfloat16))
+        vs.append(torch.nn.functional.pad(v, pad).to(torch.bfloat16))
+    if "lengths" in batch:
+        lengths = batch["lengths"].to(torch.int32)
+    else:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    logits = _logits_at(params, cfg, x, lengths)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "length": lengths}
+
+
+def forward_prefill_suffix(params: dict, cfg: ArchConfig, prefix: dict, batch: dict):
+    """Prefill a prompt suffix against cached prefix K/V (prefix-sharing admission).
+
+    prefix: ``{"k": (L, B, Sk, KVH, hd), "v": ..., "length": (B,)}``, valid
+    below ``length``; batch: ``tokens`` (B, Ssuf) right-padded, ``lengths``
+    (B,) true suffix lengths. Suffix queries are RoPE'd at ``prefix_len + i``.
+    Returns (last-true-position logits, ``{"k", "v"}`` of the suffix's own K/V
+    (L, B, Ssuf, KVH, hd) and ``length`` = prefix + suffix).
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = tokens.device
+    x = nn.embed_lookup(tokens, params["embed"])
+    prefix_len = prefix["length"].to(torch.int32)
+    pos = prefix_len[:, None] + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = nn.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(lp, h, cfg, pos)
+        o = prefix_attention(q, prefix["k"][i], prefix["v"][i], prefix_len, k, v)
+        x = x + nn.dense(o.reshape(B, S, -1), lp["wo"])
+        h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(lp, h)
+        ks.append(k.to(torch.bfloat16))
+        vs.append(v.to(torch.bfloat16))
+    lengths = batch["lengths"].to(torch.int32)
+    logits = _logits_at(params, cfg, x, lengths)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+                    "length": prefix_len + lengths}
+
+
+def forward_decode(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor):
+    """One decode step. token: (B,) int. Returns (logits, new cache).
+
+    Writes this step's K/V at index ``length`` of a copy of the cache, then
+    attends over the valid prefix; the input cache is left as it was.
+    """
+    B = token.shape[0]
+    x = nn.embed_lookup(token, params["embed"])          # (B, d)
+    length = cache["length"]
+    pos = length[:, None]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        kc, vc = cache["k"][i], cache["v"][i]
+        h = nn.rms_norm(x[:, None], lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(lp, h, cfg, pos)
+        onehot = (torch.arange(kc.shape[1], device=x.device)[None, :]
+                  == length[:, None])[:, :, None, None]
+        kc = torch.where(onehot, k.to(kc.dtype), kc)
+        vc = torch.where(onehot, v.to(vc.dtype), vc)
+        o = decode_attention(q[:, 0], kc, vc, length + 1)
+        x = x + nn.dense(o.reshape(B, -1), lp["wo"])
+        h = nn.rms_norm(x[:, None], lp["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(lp, h)[:, 0]
+        ks.append(kc)
+        vs.append(vc)
+    x = nn.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = nn.dense(x, params["unembed"])
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "length": length + 1}
+
+
+def forward_decode_paged(params: dict, cfg: ArchConfig, pages: dict, token: torch.Tensor,
+                         *, use_kernels: bool = True):
+    """One decode step over the pool's page view.
+
+    pages: ``{"k": (L, B, P, ps, KVH, hd), "v": ..., "length": (B,)}`` as
+    ``PagePool.gather_pages`` emits it. Attention runs per page through the
+    flash-decoding partials (K7 when ``use_kernels``); this step's K/V is
+    folded into the softmax (it sits at position ``length``, past every page)
+    and returned for the pool append. Returns ``(logits, (k_new, v_new))``,
+    each (L, B, KVH, hd).
+    """
+    from ..serve.kvpool import attention as paged_attn   # serve imports the models
+
+    B = token.shape[0]
+    x = nn.embed_lookup(token, params["embed"])
+    length = pages["length"]
+    pos = length[:, None]
+    k_new, v_new = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = nn.rms_norm(x[:, None], lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(lp, h, cfg, pos)
+        o = paged_attn.paged_decode_attention(
+            q[:, 0], pages["k"][i], pages["v"][i], length, k_new=k[:, 0], v_new=v[:, 0],
+            use_kernels=use_kernels)
+        x = x + nn.dense(o.reshape(B, -1), lp["wo"])
+        h = nn.rms_norm(x[:, None], lp["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(lp, h)[:, 0]
+        k_new.append(k[:, 0])
+        v_new.append(v[:, 0])
+    x = nn.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = nn.dense(x, params["unembed"])
+    return logits, (torch.stack(k_new), torch.stack(v_new))

@@ -4,8 +4,10 @@ Marked ``cuda``: each test skips without a CUDA card. Run on a card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Every comparison is bit for bit: the kernels and the plain versions do the
-same integer work and the same IEEE float divide and multiply.
+The FZ kernels (K1-K6) are held bit for bit: they and their plain versions do
+the same integer work and the same IEEE float divide and multiply. K7
+(flash-decode) is held at 2e-4: float32 sums in another order; fully masked
+rows exactly (-1e30, 0, 0).
 """
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch
 from repro_torch import FZConfig, compress, decompress, kernels
 from repro_torch.core import shuffle
 from repro_torch.data.fields import make_field
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.cuda
@@ -129,7 +132,7 @@ def test_staged_entry_points_launch_the_staged_kernels(cuda, exact_outliers):
     counts = kernels.launch_counts()
     assert counts == {"lorenzo_quant": 0 if exact_outliers else 1, "bitshuffle_flag": 1,
                       "bitunshuffle_tiles": 1, "fused_compress": 0,
-                      "fused_shuffle_encode": 0, "fused_decompress": 0}
+                      "fused_shuffle_encode": 0, "fused_decompress": 0, "flash_decode": 0}
     plain = FZConfig(eb=1e-3, exact_outliers=exact_outliers, use_kernels=False)
     c0 = compress(x, plain)
     for f in c.FIELDS:
@@ -201,3 +204,70 @@ def test_overflowing_deltas_take_the_outlier_route(cuda):
     y = decompress(c, cfg)
     plain = FZConfig(eb=1e-3, eb_mode="abs", use_kernels=False)
     assert _equal(y, decompress(compress(x, plain), plain))
+
+
+# K7 cases (as chip_smoke.py): B, H, KVH, D, pages P (or slice length S),
+# page size (0: contiguous), dtype, lengths, kv_tile, shard_offset
+K7_CASES = [
+    (4, 32, 4, 128, 13, 64, torch.bfloat16, [0, 100, 128, 832], None, 0),   # serving geometry
+    (4, 32, 4, 128, 13, 64, torch.float32, [700, 31, 64, 1], None, 0),
+    (3, 4, 4, 64, 5, 7, torch.float32, [0, 20, 35], None, 0),               # ps 7, G 1
+    (3, 4, 1, 64, 5, 7, torch.bfloat16, [3, 40, 36], None, 0),              # G 4
+    (2, 8, 2, 64, 50, 0, torch.float32, [60, 17], 16, 7),                   # offset, overlong
+    (2, 8, 8, 64, 50, 0, torch.bfloat16, [0, 49], None, 0),
+    (2, 8, 2, 256, 300, 0, torch.float32, [300, 250], 128, 0),
+]
+
+
+@pytest.mark.parametrize("case", K7_CASES, ids=[f"k7-{i}" for i in range(len(K7_CASES))])
+def test_flash_decode_matches_plain(cuda, case):
+    B, H, KVH, D, P, ps, dtype, lengths, tile, off = case
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn(B, H, D, generator=g).to(cuda)
+    shape = (B, P, ps, KVH, D) if ps else (B, P, KVH, D)
+    k, v = (torch.randn(*shape, generator=g).to(dtype).to(cuda) for _ in range(2))
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    if ps:
+        got = fd.decode_partials_pages(q, k, v, length)
+        want = fd.decode_partials_pages(q.cpu(), k.cpu(), v.cpu(), length.cpu(), device="cpu")
+    else:
+        got = fd.decode_partials(q, k, v, length, kv_tile=tile, shard_offset=off)
+        want = fd.decode_partials(q.cpu(), k.cpu(), v.cpu(), length.cpu(), kv_tile=tile,
+                                  shard_offset=off, device="cpu")
+    assert kernels.launch_counts()["flash_decode"] == 1
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=0)
+    for b, n in enumerate(lengths):
+        if n - off <= 0:
+            assert torch.all(got[0][b] == -1e30) and torch.all(got[1][b] == 0)
+            assert torch.all(got[2][b] == 0)
+
+
+def test_flash_decode_reads_the_strided_page_view(cuda):
+    """The pool's gathered view (B and P strided) is read in place, and a page
+    view with a non-contiguous page is refused."""
+    slab = torch.randn(4, 13, 2, 3, 64, 4, 128, device=cuda).to(torch.bfloat16)
+    kv = slab.permute(2, 3, 0, 1, 4, 5, 6)
+    k, v = kv[0][1], kv[1][1]
+    q = torch.randn(4, 32, 128, device=cuda)
+    length = torch.tensor([700, 650, 832, 0], dtype=torch.int32, device=cuda)
+    got = fd.decode_partials_pages(q, k, v, length)
+    want = fd.decode_partials_pages(q, k.contiguous(), v.contiguous(), length)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    every_other = k[:, :, ::2]            # positions of a page 2 rows apart
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.decode_partials_pages(q, every_other, v[:, :, ::2], length // 2)
+
+
+def test_smoke_serve_on_the_card_launches_k7_per_layer_and_step(cuda):
+    from repro_torch.launch import serve as launch_serve
+    kernels.reset_launch_counts()
+    out = launch_serve.main(["--arch", "yi-6b", "--smoke", "--paged", "--prompt-len", "24",
+                             "--tokens", "8"])
+    counts = kernels.launch_counts()
+    assert out["stats"].completed == 2
+    assert counts["flash_decode"] == out["stats"].decode_steps * 2      # 2 layers
+    assert counts["fused_compress"] > 0 and counts["fused_decompress"] > 0

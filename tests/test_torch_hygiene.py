@@ -3,7 +3,8 @@
 * No module of ``repro_torch`` and not ``chip_smoke.py`` imports ``jax`` or the
   reference package ``repro`` (an AST walk, and an import in a subprocess
   where both are blocked).
-* The entry points raise without a card unless given ``device="cpu"``.
+* The entry points raise without a card unless given ``device="cpu"``: the
+  compressor's, K7's, the model init, the pool, the engine and the launcher.
 * ``kernel_mode="staged"`` runs on the CPU on request, through the plain
   versions of K1-K3.
 * A kernel wrapper takes its plain version only for a CPU tensor and never
@@ -22,9 +23,14 @@ import pytest
 import torch
 
 import repro_torch as rt
-from repro_torch import interop, kernels
+from repro_torch import configs, interop, kernels
 from repro_torch.core import shuffle
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import nn as tnn
+from repro_torch.models import zoo
+from repro_torch.serve import Engine, PagePool, PoolConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -71,6 +77,16 @@ def _container():
     return x, rt.compress(x, rt.FZConfig(), device="cpu")
 
 
+def _attn_inputs():
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 4, 8, generator=g)
+    k = torch.randn(2, 16, 2, 8, generator=g)
+    return q, k, k.clone(), torch.tensor([3, 16], dtype=torch.int32)
+
+
+SMOKE = configs.get("yi-6b", smoke=True)
+
+
 ENTRY_POINTS = {
     "compress": lambda x, c: rt.compress(x, rt.FZConfig()),
     "compress_with_eb": lambda x, c: rt.compress_with_eb(x, 1e-3, rt.FZConfig()),
@@ -88,6 +104,16 @@ ENTRY_POINTS = {
     "tree_decompress": lambda x, c: rt.tree_decompress({"c": c}, rt.FZConfig()),
     "from_bytes": lambda x, c: rt.from_bytes(rt.to_bytes(c, rt.FZConfig())),
     "decompress_bytes": lambda x, c: rt.decompress_bytes(rt.to_bytes(c, rt.FZConfig())),
+    "decode_partials": lambda x, c: fd.decode_partials(*_attn_inputs()),
+    "decode_partials_pages": lambda x, c: fd.decode_partials_pages(
+        *(t.reshape(2, 2, 8, 2, 8) if t.ndim == 4 else t for t in _attn_inputs())),
+    "flash_decode": lambda x, c: fd.flash_decode(*_attn_inputs()),
+    "params_from_reference": lambda x, c: interop.params_from_reference({"w": x}),
+    "init_tree": lambda x, c: tnn.init_tree({"w": tnn.Param((4, 4))}),
+    "model.init": lambda x, c: zoo.build(SMOKE).init(),
+    "PagePool": lambda x, c: PagePool(PoolConfig(), n_layers=2, n_kv_heads=2, head_dim=8),
+    "Engine": lambda x, c: Engine(zoo.build(SMOKE), {}, pool=PoolConfig()),
+    "launch.serve": lambda x, c: launch_serve.main(["--arch", "yi-6b", "--smoke", "--paged"]),
 }
 
 
@@ -162,13 +188,17 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_nothing():
     shuffled, _ = kernels.bitshuffle_flag(
         shuffle.pad_to_tiles(codes.reshape(-1)).reshape(-1, 4096))
     kernels.bitunshuffle_tiles(shuffled)
+    q, k, v, length = _attn_inputs()
+    fd.decode_partials(q, k, v, length, device="cpu")
+    kernels.flash_decode_partials(fd.prep_q(q, 2), k, v, length, tile=4)
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
     assert not build._loaded
 
 
 @pytest.mark.parametrize("wrapper", ["fused_compress", "fused_shuffle_encode",
                                      "fused_decompress", "lorenzo_quant", "bitshuffle_flag",
-                                     "bitunshuffle_tiles"])
+                                     "bitunshuffle_tiles", "flash_decode_pages",
+                                     "flash_decode_contiguous"])
 def test_wrappers_never_fall_back_on_other_devices(wrapper):
     meta = torch.device("meta")
     eb = torch.tensor(1e-3, device=meta)
@@ -185,6 +215,14 @@ def test_wrappers_never_fall_back_on_other_devices(wrapper):
             torch.empty(2, 4096, dtype=torch.uint16, device=meta)),
         "bitunshuffle_tiles": lambda: kernels.bitunshuffle_tiles(
             torch.empty(2, 4096, dtype=torch.uint16, device=meta)),
+        "flash_decode_pages": lambda: kernels.flash_decode_partials(
+            torch.empty(2, 2, 4, 8, device=meta), torch.empty(2, 3, 4, 2, 8, device=meta),
+            torch.empty(2, 3, 4, 2, 8, device=meta), torch.empty(2, dtype=torch.int32,
+                                                                 device=meta)),
+        "flash_decode_contiguous": lambda: kernels.flash_decode_partials(
+            torch.empty(2, 2, 4, 8, device=meta), torch.empty(2, 12, 2, 8, device=meta),
+            torch.empty(2, 12, 2, 8, device=meta), torch.empty(2, dtype=torch.int32,
+                                                               device=meta), tile=4),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[wrapper]()
@@ -195,7 +233,8 @@ def test_build_targets_sm90a_without_fast_math(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert build.library_path("fz_compress.cu").parent == rt.BUILD_DIR
-    assert len({build.library_path(s) for s in build.SOURCES}) == len(build.SOURCES) == 3
+    assert len({build.library_path(s) for s in build.SOURCES}) == len(build.SOURCES) == 4
+    assert set(build.SIGNATURES) == set(build.SOURCES)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
