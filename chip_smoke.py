@@ -14,7 +14,9 @@ Phases (each prints its own lines):
      bfloat16, both code modes: K1 lorenzo_quant, K2 bitshuffle_flag and K3
      bitunshuffle_tiles (the staged route), K4 fused_compress, K5
      fused_shuffle_encode and K6 fused_decompress (the fused route; payload
-     capacity 1.0 and 0.25);
+     capacity 1.0 and 0.25); and K6 at its edge shapes (rows longer than a
+     tile, rows of one element, the serving page) with outlier slots in no
+     order, repeated, at the fill index n, and overflowing a tile's bin;
   3. run the main paths through the public entry points (``compress`` /
      ``decompress``) on SDRBench-sized proxies at rel eb 1e-2, 1e-3, 1e-4,
      strict and paper mode: the fused route (the default) and the staged
@@ -28,19 +30,23 @@ Phases (each prints its own lines):
      as a batch through ``compress_batch_with_eb`` / ``decompress_batch``,
      each row equal to its single-row call;
   4. the card's containers and reconstructions against the CPU path's at
-     (100, 500, 500), bit for bit;
+     (100, 500, 500), bit for bit, and on non-finite and out-of-range inputs
+     ([1, nan, inf, -inf, 3e38]: NaN quantizes to 0, the rest saturate),
+     strict mode (torch's own CUDA cast) and paper mode (K4);
   5. the kernels' launch counts on each path of phases 3 and 3b (counts set
      to 0 just before each path's calls and read just after), each kernel
      above 0 on its path;
   6. CUDA-event times at (100, 500, 500): each kernel, its plain version and
      its bound; compress/decompress GB/s and ratio of the fused, staged and
      plain routes;
-  7. K7 flash-decode against its plain version on the card at 2e-4 (float32
-     sums in another order): the serving geometry (KVH 4, G 8, D 128, pages
-     of 64, bfloat16, 4 lanes, lengths 0 / mid-page / page-aligned / full),
-     small odd shapes (page 7, D 64, G 1 and 4, float32 and bfloat16,
-     shard_offset > 0, length past the slice) and the contiguous entry; fully
-     masked rows exactly (m, num, den) = (-1e30, 0, 0);
+  7. K7 flash-decode against its plain version (the same split of the pages
+     and combine) on the card at 2e-4 (float32 sums in another order): the
+     serving geometry (KVH 4, G 8, D 128, pages of 64, bfloat16, 4 lanes,
+     lengths 0 / mid-page / page-aligned / on a split border / full / past
+     the slice; one page a split), 1, 2 and 13 splits, small odd shapes (page
+     7, D 64, G 1 and 4, float32 and bfloat16, shard_offset > 0, length past
+     the slice) and the contiguous entry; fully masked rows exactly (m, num,
+     den) = (-1e30, 0, 0);
   8. the serving path at Yi-6B's full config (32 layers, d_model 4096,
      random bfloat16 weights from a torch.Generator seeded 0 on the card): an
      8-request tracegen trace through ``Engine.serve`` with the paged FZ KV
@@ -63,8 +69,11 @@ Phases (each prints its own lines):
      (K4) and resumed (K6) between steps, batch 2, prompt 512, 16 tokens;
   10. serving times: tokens/s and ms per decode step, a torch.profiler split
      of one decode step (K7, the page gather, cold-page K6 decodes, the
-     matmuls), and K7's time, plain time, byte bound and the
-     ``scaled_dot_product_attention`` yardstick (never called by the port).
+     matmuls); K7's time L2-warm and L2-cold (a 64 MB write between
+     launches), plain time, byte bound and the
+     ``scaled_dot_product_attention`` yardstick (never called by the port);
+     K6 at the serving page (a parked 1-D bfloat16 page of 2,097,152
+     elements at the pool's bound): time, plain time and bound.
 
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
@@ -109,7 +118,22 @@ K7_CASES = [
     (2, 8, 2, 64, 50, 0, "float32", [60, 17], 16, 7),                   # offset, overlong
     (2, 8, 8, 64, 50, 0, "bfloat16", [0, 49], None, 0),
     (3, 16, 4, 128, 300, 0, "bfloat16", [300, 250, 0], 128, 0),
+    # split over pages: one page a split at the serving geometry (13 splits;
+    # 64 and 128 on split borders, 900 past the slice), 2 splits of 2 pages
+    # (B x KVH = 128), one split walking 4 pages (B x KVH = 264)
+    (4, 32, 4, 128, 13, 64, "bfloat16", [64, 5, 128, 900], None, 0),
+    (16, 64, 8, 64, 4, 16, "bfloat16", [0, 5, 32, 100] * 4, None, 0),
+    (33, 16, 8, 64, 4, 16, "float32", [0, 5, 16, 100] * 8 + [64], None, 0),
+    (2, 16, 8, 128, 1, 64, "bfloat16", [0, 40], None, 0),
+    # rows of 24 bytes, not a multiple of 16: copied by plain loads, not cp.async
+    (2, 8, 2, 12, 5, 7, "bfloat16", [0, 30], None, 0),
+    (3, 4, 4, 6, 50, 0, "float32", [50, 13, 0], 16, 0),
 ]
+# K6 at its edge shapes: rows longer than a tile, rows of one element, the
+# serving page (a flattened bfloat16 page of 2 x 32 layers x 64 x 4 x 128)
+K6_EDGE_SHAPES = [(2**16 + 3,), (3, 9000), (4100, 1), (2, 3, 1), (5, 1, 7), (2097152,)]
+NONFINITE = [1.0, float("nan"), float("inf"), float("-inf"), 3e38]
+L2_FLUSH_BYTES = 64 << 20   # written between launches for L2-cold times (L2 is 50 MB)
 # the serving trace and pool (Yi-6B full config, cut in depth of nothing)
 SERVE_TRACE = dict(seed=0, n_requests=8, vocab=64000, n_templates=2, template_len=(384, 512),
                    template_reuse=0.6, suffix_len=(64, 256), n_new=(16, 32),
@@ -151,9 +175,49 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms) -> dict:
+def breakdown(fn, iters=5):
+    """Card time per call of each CUDA kernel a call launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key.removeprefix("void ").split("(")[0].split("<")[0],
+                    e.count / iters, e.self_device_time_total / iters)
+                   for e in prof.key_averages() if e.self_device_time_total > 0),
+                  key=lambda r: -r[2])
+    if not rows:
+        return "not measured (the profiler saw no device time)"
+    return ", ".join(f"{name} {count:g}x {us:.1f} us" for name, count, us in rows[:6])
+
+
+def outlier_slots(n, kind, seed, dev):
+    """K6 outlier slots in no order: 'few' (repeats, fill slots at n, tiles under
+    their bin), 'many' (about 300 a tile: every bin overflows) or 'one_tile'
+    (500 slots in the first tile)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if kind == "few":
+        idx = np.array([n - 1, n, 0, n // 2, 0, n // 3, n - 1, n, n // 2, 1], np.int64)
+    elif kind == "many":
+        idx = rng.integers(0, n + 1, size=max(8, n // 14))
+    else:
+        idx = rng.integers(0, min(n, 4096), size=500)
+    val = rng.integers(-2**31, 2**31, size=idx.size)
+    val[idx == n] = 0
+    return (torch.from_numpy(idx.astype(np.int32)).to(dev),
+            torch.from_numpy(val.astype(np.int32)).to(dev))
+
+
+def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
+                   cold_ms) -> tuple[dict, dict]:
     """Phases 7-10: K7 against its plain version, the Yi-6B serving trace on both
-    routes, the whole-cache path and the serving times. Returns K7's row."""
+    routes, the whole-cache path and the serving times. Returns K7's row and K6's
+    numbers at the serving page."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -176,21 +240,24 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms)
         length = torch.tensor(lengths, dtype=torch.int32, device=dev)
         q4 = fd.prep_q(q, KVH)
         if ps:
+            splits = fd.split_count(B, KVH, P)
             le = fd.length_eff(length, 0, P * ps)
             got = fd.decode_partials_pages(q, k, v, length)
-            want = ref.flash_decode_ref(q4, k, v, le)
+            want = ref.flash_decode_split_ref(q4, k, v, le, splits)
         else:
             tl = min(tile or fd.KV_TILE, P)
             T = -(-P // tl)
+            splits = fd.split_count(B, KVH, T)
             le = fd.length_eff(length, off, P)
             got = fd.decode_partials(q, k, v, length, kv_tile=tile, shard_offset=off)
             pad = (0, 0, 0, 0, 0, T * tl - P)
-            want = ref.flash_decode_ref(q4, F.pad(k, pad).reshape(B, T, tl, KVH, D),
-                                        F.pad(v, pad).reshape(B, T, tl, KVH, D), le)
+            want = ref.flash_decode_split_ref(q4, F.pad(k, pad).reshape(B, T, tl, KVH, D),
+                                              F.pad(v, pad).reshape(B, T, tl, KVH, D), le,
+                                              splits)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         max_err["flash_decode"] = max(max_err["flash_decode"], err)
-        what = f"B={B} H={H} KVH={KVH} D={D} {'pages ' + str(P) + 'x' + str(ps) if ps else 'S=' + str(P)} {dtype} lengths={lengths} kv_tile={tile} offset={off}"
+        what = f"B={B} H={H} KVH={KVH} D={D} {'pages ' + str(P) + 'x' + str(ps) if ps else 'S=' + str(P)} {dtype} lengths={lengths} kv_tile={tile} offset={off} splits={splits}"
         if not err <= K7_TOL:
             raise AssertionError(f"K7 differs from its plain version by {err} at {what}")
         for b, n in enumerate(lengths):
@@ -406,7 +473,7 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms)
     step()
     torch.cuda.synchronize()
     groups = {"K7 flash_decode": ("flash_decode",), "K6 cold-page decode": (
-        "decode_tiles", "add_residuals", "scan_columns", "scan_rows_dequant"),
+        "decode_scan_rows", "bin_residuals", "scan_columns"),
         "matmuls": ("gemm", "nvjet", "sm90", "cutlass", "xmma", "cublas", "Kernel2"),
         "copies (page gather, stacking)": ("copy", "Copy", "cat", "Cat", "stack")}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -447,8 +514,10 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms)
     le_eff = fd.length_eff(le, 0, P * ps)
     k7 = lambda: fd.flash_decode_partials(q4, k0, v0, le_eff)   # noqa: E731
     ms = device_ms(k7, iters=50)
+    ms_cold = cold_ms(k7, iters=50)
     call_ms = cuda_ms(lambda: fd.decode_partials_pages(q, k0, v0, le), iters=50)
-    plain_ms = cuda_ms(lambda: ref.flash_decode_ref(q4, k0, v0, le_eff), iters=10)
+    splits = fd.split_count(Bq, KVH, P)
+    plain_ms = cuda_ms(lambda: ref.flash_decode_split_ref(q4, k0, v0, le_eff, splits), iters=10)
     H = cfg.n_heads
     valid = int(le.sum())
     nbytes = 2 * valid * KVH * D * k0.element_size() + q4.numel() * 4 + 2 * Bq * H * 4 \
@@ -463,18 +532,57 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms)
     qs = q[:, :, None, :]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask,
                                                                 enable_gqa=True), iters=50)
+    say(10, f"{card} | K7 per call on the card: {breakdown(k7)}")
     say(10, f"{card} | K7 at one layer of the page set (B {Bq}, {P} pages of {ps}, KVH {KVH}, "
-            f"G {H // KVH}, D {D}, bf16, {valid} valid positions): {ms:.4f} ms on the card "
-            f"({call_ms:.4f} ms a call with the host's share), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}%"
-            f" of bound; scaled_dot_product_attention (enable_gqa, length mask, contiguous K/V) "
+            f"G {H // KVH}, D {D}, bf16, {valid} valid positions, {splits} splits, "
+            f"{splits * Bq * KVH} CTAs): {ms:.4f} ms on the card L2-warm, {ms_cold:.4f} ms "
+            f"L2-cold ({call_ms:.4f} ms a call with the host's share), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB), "
+            f"{100 * bound_ms / ms:.1f}% of bound warm, {100 * bound_ms / ms_cold:.1f}% cold; "
+            f"scaled_dot_product_attention (enable_gqa, length mask, contiguous K/V) "
             f"{library_ms:.4f} ms")
-    return {"name": "flash_decode", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_decode.cu",
-            "replaces": "src/repro/kernels/flash_decode.py:98",
-            "launches": path_launches["serving"]["flash_decode"],
-            "max_abs_err": max_err["flash_decode"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    k7_row = {"name": "flash_decode", "route": "cuda",
+              "source": "src/repro_torch/csrc/flash_decode.cu",
+              "replaces": "src/repro/kernels/flash_decode.py:98",
+              "launches": path_launches["serving"]["flash_decode"],
+              "max_abs_err": max_err["flash_decode"], "ms": ms, "ms_l2_cold": ms_cold,
+              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": library_ms}
+
+    # K6 at the serving page: one parked page of the page set, as a cold read
+    # decodes it (1-D, bfloat16 source, the pool's resolved bound)
+    page = next(p for p in pool.pages.values() if p.state == "compressed")
+    c = pool._container(page)
+    oidx = c.outlier_idx if c.outlier_idx.numel() else None
+    oval = c.outlier_val if c.outlier_idx.numel() else None
+    args = dict(shape=c.shape, code_mode=pool._fzc.code_mode, outlier_idx=oidx,
+                outlier_val=oval)
+    k6 = lambda: kernels.fused_decompress(c.bitflags, c.payload, c.eb_abs, **args)  # noqa: E731
+    plain6 = lambda: ref.fused_decompress_ref(c.bitflags, c.payload, c.eb_abs, **args)  # noqa
+    got, want = k6(), plain6()
+    torch.cuda.synchronize()
+    max_err["fused_decompress"] = max(max_err["fused_decompress"],
+                                      float((got.double() - want.double()).abs().max()))
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("K6 differs from its plain version at the serving page")
+    n6 = got.numel()
+    used = min(int(c.nnz_blocks), c.payload.shape[0]) * 16
+    nbytes6 = c.bitflags.numel() * 4 + used + c.outlier_idx.numel() * 8 + n6 * 4
+    bytes6, ops6 = nbytes6 / HBM_BYTES_PER_S * 1e3, n6 * OPS_PER_CODE["fused_decompress"] \
+        / FP32_OPS_PER_S * 1e3
+    bound6, by6 = max((bytes6, "bytes"), (ops6, "operations"))
+    ms6, cold6 = device_ms(k6, iters=50), cold_ms(k6, iters=50)
+    plain_ms6 = cuda_ms(plain6, iters=10)
+    say(10, f"{card} | K6 at the serving page per call on the card: {breakdown(k6)}")
+    say(10, f"{card} | K6 at the serving page ({c.shape}, {c.dtype_name} source, eb_abs "
+            f"{float(c.eb_abs):.4g}, {int(c.nnz_blocks)} of {c.payload.shape[0]} blocks): "
+            f"{ms6:.4f} ms on the card L2-warm, {cold6:.4f} ms L2-cold; plain {plain_ms6:.4f} "
+            f"ms; bound {bound6:.4f} ms by {by6} ({nbytes6 / 1e6:.2f} MB), "
+            f"{100 * bound6 / ms6:.1f}% of bound warm, {100 * bound6 / cold6:.1f}% cold; "
+            f"bit-identical to its plain version")
+    k6_page = {"shape": list(c.shape), "ms": ms6, "ms_l2_cold": cold6, "plain_ms": plain_ms6,
+               "bound_ms": bound6, "bound_by": by6}
+    return k7_row, k6_page
 
 
 def main() -> int:
@@ -586,6 +694,30 @@ def main() -> int:
         torch.cuda.synchronize()
     say(2, f"K1-K6 bit-identical to their plain versions in {cases} cases "
            f"({time.time() - t0:.1f} s); max |kernel - plain|: {max_err}")
+    t0 = time.time()
+    k6_cases = 0
+    for shape in K6_EDGE_SHAPES:
+        x = field("particle" if len(shape) == 1 else "turbulent", shape, seed=8)
+        if shape == (2097152,):
+            x = x.to(torch.bfloat16)
+        eb = rt.resolve_eb(x, rt.FZConfig(eb=1e-4))
+        n = x.numel()
+        for code_mode in ("sign_mag", "zigzag"):
+            for capf in (1.0, 0.25):
+                cap = rt.FZConfig(capacity_frac=capf).payload_capacity(n)
+                bf, pl, _ = kernels.fused_compress(x, eb, capacity=cap, code_mode=code_mode)
+                for slots in (None, "few", "many", "one_tile"):
+                    oidx, oval = outlier_slots(n, slots, n, dev) if slots else (None, None)
+                    args = dict(shape=shape, code_mode=code_mode, outlier_idx=oidx,
+                                outlier_val=oval)
+                    hold("fused_decompress", kernels.fused_decompress(bf, pl, eb, **args),
+                         ref.fused_decompress_ref(bf, pl, eb, **args),
+                         f"edge {shape} {code_mode} capacity {capf} outlier slots {slots}")
+                    k6_cases += 1
+    torch.cuda.synchronize()
+    say(2, f"K6 bit-identical to its plain version at its edge shapes {K6_EDGE_SHAPES} in "
+           f"{k6_cases} cases (outlier slots none / few, repeated and at n / overflowing every "
+           f"bin / all in one tile) ({time.time() - t0:.1f} s)")
 
     # -- 3. the main paths: fused and staged routes ---------------------------
     # each path's launches: counts set to 0 just before its calls, read just after
@@ -718,6 +850,20 @@ def main() -> int:
             raise AssertionError("card and CPU reconstructions differ")
     say(4, f"card == CPU at {TIMING_SHAPE}, strict and paper: every container field and "
            f"the reconstruction bit for bit ({time.time() - t0:.1f} s)")
+    xn = torch.tensor(NONFINITE, dtype=torch.float32)
+    for exact in (True, False):
+        cfg = rt.FZConfig(eb_mode="abs", exact_outliers=exact)
+        c = rt.compress_with_eb(xn.to(dev), 1e-3, cfg)
+        c_cpu = rt.compress_with_eb(xn, 1e-3, cfg, device="cpu")
+        for f in c.FIELDS:
+            if not same(getattr(c_cpu, f), getattr(c, f)):
+                raise AssertionError(f"card and CPU differ in container field {f} on "
+                                     f"{NONFINITE} ({'strict' if exact else 'paper'})")
+        y, y_cpu = rt.decompress(c, cfg), rt.decompress(c_cpu, cfg, device="cpu")
+        if not same(y_cpu, y):
+            raise AssertionError(f"card and CPU reconstructions differ on {NONFINITE}")
+        say(4, f"card == CPU on {NONFINITE} at abs eb 1e-3, {'strict' if exact else 'paper'} "
+               f"mode: every container field and the reconstruction {y.tolist()} bit for bit")
 
     # -- 5. launch counts ------------------------------------------------------
     for path, counts in path_launches.items():
@@ -768,22 +914,32 @@ def main() -> int:
                                "than the sleep ahead of them: device time not isolated")
         return ev[1].elapsed_time(ev[2]) / iters
 
-    def breakdown(fn, iters=5):
-        """Card time per call of each CUDA kernel a call launches (torch.profiler)."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def cold_ms(fn, iters=20, warmup=3):
+        """Device time per call with L2 cold: a 64 MB write before each call,
+        each call between its own pair of events, all queued behind a sleep.
+        Only for calls that never wait on the card."""
+        for _ in range(warmup):
+            fn()
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters + 1)]
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        rows = sorted(((e.key.removeprefix("void ").split("(")[0].split("<")[0],
-                        e.count / iters, e.self_device_time_total / iters)
-                       for e in prof.key_averages() if e.self_device_time_total > 0),
-                      key=lambda r: -r[2])
-        if not rows:
-            return "not measured (the profiler saw no device time)"
-        return ", ".join(f"{name} {count:g}x {us:.1f} us" for name, count, us in rows[:6])
+        pairs[0][0].record()
+        torch.cuda._sleep(200_000_000)
+        pairs[0][1].record()
+        t = time.perf_counter()
+        for a, b in pairs[1:]:
+            flush.fill_(1.0)
+            a.record()
+            fn()
+            b.record()
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        if host_ms >= pairs[0][0].elapsed_time(pairs[0][1]):
+            raise RuntimeError(f"queueing {iters} calls took {host_ms:.1f} ms, longer "
+                               "than the sleep ahead of them: device time not isolated")
+        return sum(a.elapsed_time(b) for a, b in pairs[1:]) / iters
 
     n = x.numel()
     cfg = rt.FZConfig(eb=1e-3)
@@ -876,7 +1032,15 @@ def main() -> int:
                    f"{raw / c_ms / 1e6:.1f} GB/s{card_c}, decompress {d_ms:.3f} ms = "
                    f"{raw / d_ms / 1e6:.1f} GB/s{card_d}, CR {c.compression_ratio():.3f}")
 
-    rows.append(serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms))
+    k7_row, k6_page = serving_phases(card, dev, drive, path_launches, max_err, cuda_ms,
+                                     device_ms, cold_ms)
+    for row in rows:                  # K6 carries both shapes; max_abs_err after phase 10
+        row["max_abs_err"] = max_err[row["name"]]
+        if row["name"] == "fused_decompress":
+            row["shapes"] = [{"shape": list(TIMING_SHAPE), "ms": row["ms"],
+                              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                              "bound_by": row["bound_by"]}, k6_page]
+    rows.append(k7_row)
     say(10, f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -120,9 +120,13 @@ class FZCompressed:
 
 
 def _dtype_name(data: torch.Tensor) -> str:
-    """Source dtype the container's byte accounting is charged against."""
+    """Source dtype the container's byte accounting is charged against.
+
+    float64 is charged as the float32 it becomes, as the reference (JAX with
+    x64 off) names it; non-float inputs likewise.
+    """
     name = str(data.dtype).removeprefix("torch.")
-    return name if name in _ITEMSIZE else "float32"
+    return name if name in ("float32", "bfloat16", "float16") else "float32"
 
 
 def _as_input(data, device: torch.device) -> tuple[torch.Tensor, str]:

@@ -75,9 +75,20 @@ def from_codes(code: torch.Tensor, *, code_mode: str = "sign_mag") -> torch.Tens
     raise ValueError(f"unknown code_mode {code_mode!r}")
 
 
+_INT32_MAX = 2**31 - 1
+_BELOW_2_31 = 2147483520.0     # the largest float32 below 2**31
+
+
 def prequantize(data: torch.Tensor, eb: torch.Tensor) -> torch.Tensor:
-    """``rint(x / (2 eb))`` as int32: a true divide, rounded half to even."""
-    return torch.round(data.to(torch.float32) / (2.0 * eb)).to(torch.int32)
+    """``rint(x / (2 eb))`` as int32: a true divide, rounded half to even.
+
+    The conversion is XLA's ``astype(int32)`` (and the card's
+    ``__float2int_rn``): NaN becomes 0 and values past the int32 range
+    saturate, where a bare ``.to(torch.int32)`` is undefined for them.
+    """
+    r = torch.round(data.to(torch.float32) / (2.0 * eb))
+    q = torch.nan_to_num(r, nan=0.0).clamp(-2.0**31, _BELOW_2_31).to(torch.int32)
+    return torch.where(r >= 2.0**31, _INT32_MAX, q)
 
 
 def dual_quantize(data: torch.Tensor, eb: torch.Tensor, *,

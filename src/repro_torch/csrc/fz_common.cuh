@@ -32,9 +32,10 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
   return v;
 }
 
+// One 64-bit atomic store carries both the status and the value, and readers
+// take nothing else from a publisher, so no fence is needed before it.
 __device__ __forceinline__ void publish(unsigned long long* st, long long i,
                                         unsigned long long status, unsigned v) {
-  __threadfence();
   atomicExch(st + i, status | v);
 }
 
@@ -84,6 +85,32 @@ __device__ unsigned scan_segment(unsigned long long* st, long long seg,
   return s_excl;
 }
 
+// The segmented form (K6's row scan, resetting at every row start): a segment
+// holding a row start publishes the sum after its last start as an inclusive
+// prefix at once, since nothing before that start reaches past it; if it
+// begins mid-row it still looks back for the carry into its leading part. A
+// segment with no start chains as in scan_segment. Returns the carry (the
+// running row sum just before the segment; 0 if it begins a row). `agg` and
+// `has_start` must be valid in warp 0; segment 0 must hold a start.
+__device__ unsigned scan_segment_rows(unsigned long long* st, long long seg, unsigned agg,
+                                      bool has_start, bool mid_row) {
+  __shared__ unsigned s_carry;
+  if (threadIdx.x < 32) {
+    unsigned carry = 0;
+    if (has_start) {
+      if (threadIdx.x == 0) publish(st, seg, ST_PREFIX, agg);
+      if (mid_row) carry = lookback_exclusive(st, seg, 0);
+    } else {
+      if (threadIdx.x == 0) publish(st, seg, ST_AGGREGATE, agg);
+      carry = lookback_exclusive(st, seg, 0);
+      if (threadIdx.x == 0) publish(st, seg, ST_PREFIX, carry + agg);
+    }
+    if (threadIdx.x == 0) s_carry = carry;
+  }
+  __syncthreads();
+  return s_carry;
+}
+
 __device__ __forceinline__ long long take_ticket(unsigned* ticket) {
   __shared__ long long s_seg;
   if (threadIdx.x == 0) s_seg = atomicAdd(ticket, 1u);
@@ -117,6 +144,30 @@ __device__ __forceinline__ unsigned unshuffle_warp(unsigned word) {
     if ((lane & 15) == 15 - k) mine = code;
   }
   return mine;
+}
+
+// The inverse for one thread and one 16-code group, in registers: the group's
+// 16 words (bit planes, plane-major in a tile: word w of group g at
+// w * GROUPS_PER_TILE + g) transposed as a 16x16 bit matrix in 4 rounds of
+// masked swaps; code e is then the 16-bit reversal of transposed row 15 - e.
+// About 12 operations a code, where the warp-ballot form costs about 4
+// warp-wide instructions for every code of its warp.
+__device__ __forceinline__ void unshuffle_group(const uint16_t* tile_words, int g,
+                                                unsigned code[16]) {
+  unsigned a[16];
+#pragma unroll
+  for (int w = 0; w < 16; ++w) a[w] = tile_words[w * GROUPS_PER_TILE + g];
+#pragma unroll
+  for (int j = 8, m = 0x00FF; j != 0; j >>= 1, m ^= m << j) {
+#pragma unroll
+    for (int k = 0; k < 16; k = ((k | j) + 1) & ~j) {
+      const unsigned t = ((a[k] >> j) ^ a[k + j]) & static_cast<unsigned>(m);
+      a[k + j] ^= t;
+      a[k] ^= t << j;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) code[e] = __brev(a[15 - e]) >> 16;
 }
 
 // Saturating u16 code of an int32 Lorenzo delta: sign-magnitude (<= 0x7FFF)

@@ -36,8 +36,8 @@ SIGNATURES = {
     },
     "fz_decompress.cu": {
         "fz_fused_decompress": [_P, _P, _L, _P, _I, _I, _L, _L, _L, _P, _P, _L, _P, _P,
-                                _P, _P],
-        "fz_decompress_scratch_words": [_L, _L, _L],
+                                _P],
+        "fz_decompress_scratch_words": [_L, _I],
     },
     "fz_staged.cu": {
         "fz_lorenzo_quant": [_P, _I, _I, _L, _L, _L, _P, _I, _P, _P],
@@ -45,11 +45,12 @@ SIGNATURES = {
         "fz_bitunshuffle_tiles": [_P, _L, _P, _P],
     },
     "flash_decode.cu": {
-        "fz_flash_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
-                            _P, _P, _P, _P],
+        "fz_flash_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L,
+                            _L, _P, _P, _P, _P, _P],
+        "fz_flash_decode_scratch_floats": [_I, _I, _I, _I, _I],
     },
 }
-_RESTYPES = {"fz_decompress_scratch_words": _L}
+_RESTYPES = {"fz_decompress_scratch_words": _L, "fz_flash_decode_scratch_floats": _L}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

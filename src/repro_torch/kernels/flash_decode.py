@@ -8,12 +8,15 @@ kernel; accumulation is float32; the mask is ``pos < min(length - shard_offset,
 S_slice)``. A fully masked row gives ``m == NEG_INF`` and ``num == den == 0``.
 
 ``flash_decode_partials`` is the one wrapper that launches the kernel and
-counts its launches. For a CPU tensor it runs the plain version
-(``kernels/ref.py:flash_decode_ref``); for a CUDA tensor it launches the kernel
-on the current stream or raises. The page view is read in place through its
-batch and page strides (each page's ``(ps, KVH, D)`` block must be contiguous);
-a contiguous cache is read as tiles of ``kv_tile`` positions, the ragged last
-tile masked in the kernel instead of padded.
+counts its launches. Each row's tiles are split across CTAs
+(``split_count``), and a second small launch combines the splits; the call
+counts as one launch of K7. For a CPU tensor it runs the plain version of the
+same split and combine (``kernels/ref.py:flash_decode_split_ref``); for a CUDA
+tensor it launches the kernel on the current stream or raises. The page view
+is read in place through its batch and page strides (each page's
+``(ps, KVH, D)`` block must be contiguous); a contiguous cache is read as tiles
+of ``kv_tile`` positions, the ragged last tile masked in the kernel instead of
+padded.
 
 Entry points (``device`` defaults to the card, as everywhere in the port):
 ``decode_partials``, ``decode_partials_pages``, ``flash_decode``; and
@@ -29,7 +32,17 @@ from . import build, ref
 
 NEG_INF = ref.NEG_INF    # the reference's finite -inf stand-in
 KV_TILE = 128            # default KV positions a tile on the contiguous entry
+TARGET_CTAS = 264        # about two CTAs on each of the H100's 132 SMs
 _SOURCE = "flash_decode.cu"
+
+
+def split_count(B: int, KVH: int, n_tiles: int) -> int:
+    """Splits of a row's tiles: enough for about ``TARGET_CTAS`` CTAs over the
+    (split, KVH, B) grid, at most one tile a split, every split non-empty. The
+    Yi-6B page set (B 4, KVH 4, 13 pages) gets 13 splits, 208 CTAs."""
+    want = max(1, min(n_tiles, -(-TARGET_CTAS // (B * KVH))))
+    tps = -(-n_tiles // want)
+    return -(-n_tiles // tps)
 
 
 def _strides(t: torch.Tensor, KVH: int, D: int) -> tuple[int, int]:
@@ -57,12 +70,13 @@ def flash_decode_partials(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         n_tiles = -(-S // tile)
     else:
         n_tiles, tile = k.shape[1], k.shape[2]
+    splits = split_count(B, KVH, n_tiles)
     if k.device.type == "cpu":
         if k.ndim == 4:
             pad = n_tiles * tile - k.shape[1]
             k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)).reshape(B, n_tiles, tile, KVH, D)
                     for t in (k, v))
-        return ref.flash_decode_ref(q4, k, v, length_eff)
+        return ref.flash_decode_split_ref(q4, k, v, length_eff, splits)
     dev = k.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -91,11 +105,13 @@ def flash_decode_partials(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     num = torch.empty((B, KVH, G, D), dtype=torch.float32, device=dev)
     den = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
     lib = build.library(_SOURCE)
+    words = lib.fz_flash_decode_scratch_floats(B, KVH, G, D, splits)
+    scratch = torch.empty(words, dtype=torch.float32, device=dev) if words else None
     rc = lib.fz_flash_decode(
         q4.data_ptr(), k.data_ptr(), v.data_ptr(), length_eff.data_ptr(),
-        int(k.dtype == torch.bfloat16), B, KVH, G, D, n_tiles, tile, *strides,
+        int(k.dtype == torch.bfloat16), B, KVH, G, D, n_tiles, tile, splits, *strides,
         m.data_ptr(), num.data_ptr(), den.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr() if words else None, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "fz_flash_decode", rc)
     flash_decode_partials.launches += 1
     return m, num, den

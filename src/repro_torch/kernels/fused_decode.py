@@ -3,8 +3,11 @@
 Replaces the Pallas TPU kernel ``repro/kernels/fused_decode.py:fused_decompress``:
 container fields (+ optional outlier residuals) -> float32[shape],
 bit-identical to ``dual_dequantize(bitunshuffle(decode(...)))``. On the card
-it is one call of several launches (decode, residuals, one column scan per
-non-last axis, row scan + dequantize), counted as one launch of K6.
+it is one call, counted as one launch of K6: a residual binning pass (only
+with outlier slots), the fused decode + last-axis prefix (which writes
+float32 directly for 1-D data), then one in-place column pass for each other
+axis, the last one dequantizing. Axes of size 1 are dropped first: a prefix
+along them is the identity.
 
 For CPU tensors the wrapper runs the plain version (``kernels/ref.py``); for
 CUDA tensors it launches the kernels on the current stream or raises.
@@ -57,19 +60,16 @@ def fused_decompress(bitflags: torch.Tensor, payload: torch.Tensor, eb: torch.Te
                                  f"of one size on {dev}")
         n_out = outlier_idx.numel()
     lib = build.library(_SOURCE)
-    row_len = shape[-1]
-    words = lib.fz_decompress_scratch_words(n_tiles, n // row_len, row_len)
-    scratch = torch.zeros(words, dtype=torch.int64, device=dev)   # look-back + tickets
-    qbuf = torch.empty(n, dtype=torch.int32, device=dev)
+    words = lib.fz_decompress_scratch_words(n_tiles, int(n_out > 0))
+    scratch = torch.zeros(words, dtype=torch.int64, device=dev)   # look-back, tickets, bins
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    dims = list(shape) + [1] * (3 - len(shape))
+    dims = [s for s in shape if s != 1] or [1]
     rc = lib.fz_fused_decompress(
         bitflags.data_ptr(), payload.data_ptr(), payload.shape[0], eb.data_ptr(),
-        _code_mode(code_mode), len(shape), *dims,
+        _code_mode(code_mode), len(dims), *dims, *[1] * (3 - len(dims)),
         outlier_idx.data_ptr() if n_out else None,
         outlier_val.data_ptr() if n_out else None, n_out,
-        qbuf.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "fz_fused_decompress", rc)
     fused_decompress.launches += 1
     return out

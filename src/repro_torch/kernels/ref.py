@@ -9,7 +9,8 @@ Each function computes exactly what its kernel computes, the way
 * K4 ``fused_compress``:       encode(bitshuffle(pad(quantize(data))))
 * K5 ``fused_shuffle_encode``: encode(bitshuffle(codes))
 * K6 ``fused_decompress``:     dual_dequantize(bitunshuffle(decode(...)))
-* K7 ``flash_decode``:         the reference kernel's per-tile online softmax
+* K7 ``flash_decode``:         the reference kernel's per-tile online softmax,
+                               over each split of the tiles, then the combine
 
 K1-K3 return the reference kernels' ``uint16``/``uint8`` results.
 
@@ -110,3 +111,29 @@ def flash_decode_ref(q4: torch.Tensor, k_tiles: torch.Tensor, v_tiles: torch.Ten
         num = num * corr[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, v)
         m = m_new
     return m, num, den
+
+
+def flash_decode_split_ref(q4: torch.Tensor, k_tiles: torch.Tensor, v_tiles: torch.Tensor,
+                           length_eff: torch.Tensor, splits: int):
+    """K7 split over its tiles: split s runs ``flash_decode_ref`` on tiles
+    ``[s * tps, (s + 1) * tps)``, ``tps = ceil(T / splits)``, with the length
+    shifted to the split's first position, and ``combine_splits_ref`` merges the
+    splits. One split is ``flash_decode_ref`` itself."""
+    T, tile = k_tiles.shape[1], k_tiles.shape[2]
+    if splits <= 1:
+        return flash_decode_ref(q4, k_tiles, v_tiles, length_eff)
+    tps = -(-T // splits)
+    parts = [flash_decode_ref(q4, k_tiles[:, t0:t0 + tps], v_tiles[:, t0:t0 + tps],
+                              length_eff.to(torch.int32) - t0 * tile)
+             for t0 in range(0, splits * tps, tps)]
+    return combine_splits_ref(*(torch.stack(p) for p in zip(*parts)))
+
+
+def combine_splits_ref(m_s: torch.Tensor, num_s: torch.Tensor, den_s: torch.Tensor):
+    """Merge split partials stacked on a leading axis: ``m = max m_s``, ``num =
+    sum num_s exp(m_s - m)``, ``den`` likewise. Splits with no valid position
+    (m_s = NEG_INF, zeros) weigh 0 beside a real one, and an all-empty row stays
+    exactly (NEG_INF, 0, 0): its weights are exp(0) = 1 on zeros."""
+    m = m_s.amax(0)
+    w = torch.exp(m_s - m)
+    return m, (num_s * w[..., None]).sum(0), (den_s * w).sum(0)

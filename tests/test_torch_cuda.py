@@ -6,8 +6,9 @@ Marked ``cuda``: each test skips without a CUDA card. Run on a card with
 
 The FZ kernels (K1-K6) are held bit for bit: they and their plain versions do
 the same integer work and the same IEEE float divide and multiply. K7
-(flash-decode) is held at 2e-4: float32 sums in another order; fully masked
-rows exactly (-1e30, 0, 0).
+(flash-decode) is held at 2e-4 against the plain split-then-combine at the
+wrapper's split count (what the wrapper runs for CPU tensors): float32 sums in
+another order; fully masked rows exactly (-1e30, 0, 0).
 """
 import numpy as np
 import pytest
@@ -94,6 +95,54 @@ def test_fused_decompress_matches_plain(cuda, shape, code_mode, capacity_frac, o
     want = ref.fused_decompress_ref(c.bitflags, c.payload, c.eb_abs, shape=c.shape,
                                     code_mode=code_mode, outlier_idx=oidx, outlier_val=oval)
     assert _equal(got, want)
+
+
+# rows longer than a tile, rows of one element, the serving page (a flattened
+# 1-D bfloat16 page of 2 x 32 layers x 64 positions x 4 KV heads x 128)
+K6_SHAPES = [(2**16 + 3,), (3, 9000), (4100, 1), (2, 3, 1), (5, 1, 7), (2097152,)]
+
+
+def _outlier_slots(n, kind, seed):
+    """Outlier slots in no order: 'few' (repeats, fill slots at n, some tiles
+    under their bin), 'many' (about 300 a tile: every bin overflows) or
+    'one_tile' (all in the first tile)."""
+    rng = np.random.default_rng(seed)
+    if kind == "few":
+        idx = np.array([n - 1, n, 0, n // 2, 0, n // 3, n - 1, n, n // 2, 1], np.int64)
+    elif kind == "many":
+        idx = rng.integers(0, n + 1, size=max(8, n // 14))
+    else:
+        idx = rng.integers(0, min(n, 4096), size=500)
+    val = rng.integers(-2**31, 2**31, size=idx.size)
+    val[idx == n] = 0
+    return (torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(val.astype(np.int32)))
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES)
+@pytest.mark.parametrize("code_mode", ["sign_mag", "zigzag"])
+@pytest.mark.parametrize("capacity_frac", [1.0, 0.25])
+@pytest.mark.parametrize("slots", [None, "few", "many", "one_tile"])
+def test_fused_decompress_edge_shapes_and_slots_match_plain(cuda, shape, code_mode,
+                                                            capacity_frac, slots):
+    x = _field(shape, seed=8)
+    if len(shape) == 1 and shape[0] == 2097152:
+        x = x.to(torch.bfloat16)
+    eb = (torch.tensor(1e-4) * (x.float().amax() - x.float().amin())).to(cuda)
+    n = x.numel()
+    cap = FZConfig(capacity_frac=capacity_frac).payload_capacity(n)
+    bf, payload, _ = kernels.fused_compress(x.to(cuda), eb, capacity=cap, code_mode=code_mode)
+    oidx, oval = _outlier_slots(n, slots, n) if slots else (None, None)
+    args = dict(shape=shape, code_mode=code_mode,
+                outlier_idx=None if oidx is None else oidx.to(cuda),
+                outlier_val=None if oval is None else oval.to(cuda))
+    got = kernels.fused_decompress(bf, payload, eb, **args)
+    assert _equal(got, ref.fused_decompress_ref(bf, payload, eb, **args))
+    if slots:                        # the plain version on the CPU, slots sorted
+        order = torch.argsort(oidx.to(torch.int64), stable=True)
+        cpu = ref.fused_decompress_ref(bf.cpu(), payload.cpu(), eb.cpu(), shape=shape,
+                                       code_mode=code_mode, outlier_idx=oidx[order],
+                                       outlier_val=oval[order])
+        assert _equal(got, cpu)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -216,6 +265,16 @@ K7_CASES = [
     (2, 8, 2, 64, 50, 0, torch.float32, [60, 17], 16, 7),                   # offset, overlong
     (2, 8, 8, 64, 50, 0, torch.bfloat16, [0, 49], None, 0),
     (2, 8, 2, 256, 300, 0, torch.float32, [300, 250], 128, 0),
+    # split over pages: one page a split at the serving geometry (13 splits;
+    # 64 and 128 on split borders, 900 past the slice), 2 splits of 2 pages
+    # (B x KVH = 128), one split walking 4 pages (B x KVH = 264)
+    (4, 32, 4, 128, 13, 64, torch.bfloat16, [64, 5, 128, 900], None, 0),
+    (16, 64, 8, 64, 4, 16, torch.bfloat16, [0, 5, 32, 100] * 4, None, 0),
+    (33, 16, 8, 64, 4, 16, torch.float32, [0, 5, 16, 100] * 8 + [64], None, 0),
+    (2, 16, 8, 128, 1, 64, torch.bfloat16, [0, 40], None, 0),
+    # rows of 24 bytes, not a multiple of 16: copied by plain loads, not cp.async
+    (2, 8, 2, 12, 5, 7, torch.bfloat16, [0, 30], None, 0),
+    (3, 4, 4, 6, 50, 0, torch.float32, [50, 13, 0], 16, 0),
 ]
 
 

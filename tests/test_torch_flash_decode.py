@@ -215,3 +215,74 @@ def test_bf16_pages_with_strided_view():
     want = fd.decode_partials_pages(q, k.contiguous(), v.contiguous(), length, device="cpu")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# K7's split over pages: the plain split-then-combine against the reference's
+# unsplit partials
+# ---------------------------------------------------------------------------
+
+# lengths: empty, inside the first page, a page border (the split border at one
+# page a split), the border of two splits of 3 pages, past the slice
+SPLIT_LENGTHS = [0, 5, 8, 24, 100]
+
+
+@pytest.mark.parametrize("splits", [1, 2, "per_page"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_plain_split_k7_matches_reference_unsplit(ref, G, splits):
+    B, KVH, D, ps, P = len(SPLIT_LENGTHS), 2, 16, 8, 6
+    n_splits = P if splits == "per_page" else splits
+    (jq, jk, jv), (tq, tk, tv) = _inputs(6 + G, B, G * KVH, KVH, D, P * ps, False)
+    length = np.asarray(SPLIT_LENGTHS, np.int32)
+    tkp, tvp = pages_from_cache(tk, tv, ps)
+    le = fd.length_eff(torch.from_numpy(length), 0, P * ps)
+    got = kref.flash_decode_split_ref(fd.prep_q(tq, KVH), tkp, tvp, le, n_splits)
+    jkp, jvp = jpaged.pages_from_cache(jk, jv, ps)
+    _close(ref.decode_partials_pages(jq, jkp, jvp, jnp.asarray(length), interpret=True), got)
+    _close(jdist.decode_partials(jq, jk, jv, jnp.asarray(length), shard_offset=0), got)
+    _empty_rows_exact(got, [0])
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_plain_split_k7_contiguous_tiles_with_offset(ref, bf16):
+    """Splits of kv_tile-sized tiles of a contiguous slice with a shard offset:
+    a row fully before the slice, one ending inside the ragged last tile."""
+    B, H, KVH, D, S, tile, off = 3, 8, 2, 32, 45, 8, 10
+    (jq, jk, jv), (tq, tk, tv) = _inputs(9, B, H, KVH, D, S, bf16)
+    length = np.asarray([4, 60, 33], np.int32)
+    T = -(-S // tile)
+    pad = (0, 0, 0, 0, 0, T * tile - S)
+    kt, vt = (torch.nn.functional.pad(t, pad).reshape(B, T, tile, KVH, D) for t in (tk, tv))
+    le = fd.length_eff(torch.from_numpy(length), off, S)
+    want = jdist.decode_partials(jq, jk, jv, jnp.asarray(length), shard_offset=off)
+    for n_splits in (1, 2, 3, T):
+        got = kref.flash_decode_split_ref(fd.prep_q(tq, KVH), kt, vt, le, n_splits)
+        _close(want, got)
+        _empty_rows_exact(got, [0])
+
+
+def test_combine_of_all_empty_splits_is_exactly_empty():
+    m = torch.full((4, 2, 3, 5), kref.NEG_INF)
+    num, den = torch.zeros(4, 2, 3, 5, 7), torch.zeros(4, 2, 3, 5)
+    _empty_rows_exact(kref.combine_splits_ref(m, num, den), [0, 1])
+
+
+@pytest.mark.parametrize("B,KVH", [(1, 1), (4, 4), (2, 8), (16, 8), (64, 8)])
+def test_split_count_fills_the_card_with_non_empty_splits(B, KVH):
+    for T in (1, 2, 5, 13, 64, 1000):
+        s = fd.split_count(B, KVH, T)
+        tps = -(-T // s)
+        assert 1 <= s <= T and (s - 1) * tps < T <= s * tps      # no split empty
+        assert s == T or B * KVH * s >= fd.TARGET_CTAS // 2
+    assert fd.split_count(4, 4, 13) == 13                       # Yi-6B: one page a split
+
+
+def test_wrapper_runs_the_plain_split_on_the_cpu():
+    _, (tq, tk, tv) = _inputs(10, 4, 32, 4, 32, 13 * 8, True)
+    kp, vp = pages_from_cache(tk, tv, 8)
+    length = torch.tensor([0, 8, 50, 104], dtype=torch.int32)
+    got = fd.decode_partials_pages(tq, kp, vp, length, device="cpu")
+    want = kref.flash_decode_split_ref(fd.prep_q(tq, 4), kp, vp, length, 13)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _empty_rows_exact(got, [0])

@@ -233,3 +233,86 @@ def test_from_reference_rejects_missing_fields():
     with pytest.raises(KeyError):
         interop.from_reference({"bitflags": np.zeros(16, np.uint32)}, (10,), "float32",
                                device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Non-finite and out-of-range inputs, float64 inputs
+# ---------------------------------------------------------------------------
+
+NONFINITE = [[np.nan], [np.inf], [-np.inf], [3e38], [-3e38], [1.0, np.nan],
+             [1.0, np.nan, np.inf, -np.inf, 3e38]]
+
+
+@pytest.mark.parametrize("values", NONFINITE, ids=[f"v{i}" for i in range(len(NONFINITE))])
+@pytest.mark.parametrize("route", ["kernels", "plain"])
+@pytest.mark.parametrize("exact_outliers", [True, False])
+def test_nonfinite_and_huge_inputs_match_reference(ref, values, route, exact_outliers):
+    """NaN quantizes to 0 and values past the int32 range saturate, as XLA's
+    ``astype(int32)`` does: containers and reconstructions equal the reference's."""
+    x = np.asarray(values, np.float32)
+    port_cfgs, jcfg = _cfgs(eb_mode="abs", exact_outliers=exact_outliers)
+    jc = ref.compress_with_eb(jnp.asarray(x), jnp.float32(1e-3), jcfg)
+    c = rt.compress_with_eb(torch.from_numpy(x), 1e-3, port_cfgs[route], device="cpu")
+    assert_same_container(jc, c)
+    assert_same(ref.decompress(jc, jcfg), rt.decompress(c, port_cfgs[route], device="cpu"))
+
+
+def test_prequantize_converts_as_xla_does(ref):
+    from repro.core import quant as jquant
+    from repro_torch.core import quant
+    x = np.asarray([np.nan, 3e38, -3e38, np.inf, -np.inf, 2147483520.0, -2147483648.0,
+                    1.5, 2.5, -0.5], np.float32)
+    want = jnp.rint(jnp.asarray(x) / jnp.float32(1.0)).astype(jnp.int32)
+    got = quant.prequantize(torch.from_numpy(x), torch.tensor(0.5))
+    assert_same(want, got)
+    codes, _, _, _ = jquant.dual_quantize(jnp.asarray(x), jnp.float32(0.5))
+    assert_same(codes, quant.dual_quantize(torch.from_numpy(x), torch.tensor(0.5))[0])
+
+
+@pytest.mark.parametrize("route", ["kernels", "plain"])
+def test_float64_input_is_charged_as_float32(ref, route):
+    x = np.random.default_rng(0).standard_normal(5000)
+    port_cfgs, jcfg = _cfgs()
+    cfg = port_cfgs[route]
+    jc = ref.compress(jnp.asarray(x), jcfg)
+    c = rt.compress(torch.from_numpy(x), cfg, device="cpu")
+    assert_same_container(jc, c)
+    assert c.dtype_name == jc.dtype_name == "float32"
+    assert c.raw_bytes() == int(jc.raw_bytes()) == 20000
+    assert np.float32(c.compression_ratio()) == np.float32(jc.compression_ratio())  # f32 there
+    assert rt.to_bytes(c, cfg, entropy=False) == ref.to_bytes(jc, jcfg, entropy=False)
+    assert rt.compress(x, cfg, device="cpu").dtype_name == "float32"     # numpy float64 too
+
+
+# Rows longer than a tile, rows of one element, and outlier slots in no order
+# with repeats and fill slots at index n
+K6_EDGE_SHAPES = [(2**16 + 3,), (3, 9000), (4100, 1), (2, 3, 1), (5, 1, 7)]
+
+
+@pytest.mark.parametrize("shape", K6_EDGE_SHAPES)
+@pytest.mark.parametrize("code_mode", ["sign_mag", "zigzag"])
+def test_plain_k6_edge_cases_match_reference_kernel(ref, shape, code_mode):
+    from repro.kernels import fused_decode as jfd
+    x = make_field("turbulent" if len(shape) > 1 else "particle", shape, seed=12)
+    eb = np.float32(1e-4 * (x.max() - x.min()))
+    n = x.size
+    cap = rt.FZConfig(capacity_frac=0.5).payload_capacity(n)
+    bf, payload, _ = kernels.fused_compress(torch.from_numpy(x), torch.tensor(eb),
+                                            capacity=cap, code_mode=code_mode)
+    oidx = np.array([n - 1, n, 0, n // 2, 0, n // 3, n - 1, n, n // 2, 1], np.int32)
+    oval = np.array([7, 0, -70000, 123456, 5, -1, 2**30, 0, -123456, 40000], np.int32)
+    want = jfd.fused_decompress(jnp.asarray(bf.numpy()), jnp.asarray(payload.numpy()),
+                                jnp.float32(eb), shape=shape, code_mode=code_mode,
+                                outlier_idx=jnp.asarray(oidx), outlier_val=jnp.asarray(oval),
+                                interpret=True)
+    got = kernels.fused_decompress(bf, payload, torch.tensor(eb), shape=shape,
+                                   code_mode=code_mode, outlier_idx=torch.from_numpy(oidx),
+                                   outlier_val=torch.from_numpy(oval))
+    assert_same(want, got)
+    # the same slots sorted give the same field: order does not matter
+    order = np.argsort(oidx, kind="stable")
+    again = kernels.fused_decompress(bf, payload, torch.tensor(eb), shape=shape,
+                                     code_mode=code_mode,
+                                     outlier_idx=torch.from_numpy(oidx[order]),
+                                     outlier_val=torch.from_numpy(oval[order]))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
