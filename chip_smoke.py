@@ -14,9 +14,13 @@ Phases (each prints its own lines):
      bfloat16, both code modes: K1 lorenzo_quant, K2 bitshuffle_flag and K3
      bitunshuffle_tiles (the staged route), K4 fused_compress, K5
      fused_shuffle_encode and K6 fused_decompress (the fused route; payload
-     capacity 1.0 and 0.25); and K6 at its edge shapes (rows longer than a
+     capacity 1.0 and 0.25); K6 at its edge shapes (rows longer than a
      tile, rows of one element, the serving page) with outlier slots in no
-     order, repeated, at the fill index n, and overflowing a tile's bin;
+     order, repeated, at the fill index n, and overflowing a tile's bin; K4
+     and K5 at the shapes that reach every layout of K4's neighbour windows
+     and at the serving page, float32 and bfloat16, both code modes,
+     capacity 1.0 and 0.25, the data at its own allocation and 3 elements
+     past a 16-byte boundary; and K2/K3 at odd tile counts;
   3. run the main paths through the public entry points (``compress`` /
      ``decompress``) on SDRBench-sized proxies at rel eb 1e-2, 1e-3, 1e-4,
      strict and paper mode: the fused route (the default) and the staged
@@ -73,7 +77,9 @@ Phases (each prints its own lines):
      launches), plain time, byte bound and the
      ``scaled_dot_product_attention`` yardstick (never called by the port);
      K6 at the serving page (a parked 1-D bfloat16 page of 2,097,152
-     elements at the pool's bound): time, plain time and bound.
+     elements at the pool's bound) and K4 at the serving page (a raw page of
+     the page set, compressed as the pool parks it): time L2-warm and
+     L2-cold, plain time and bound.
 
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
@@ -132,6 +138,11 @@ K7_CASES = [
 # K6 at its edge shapes: rows longer than a tile, rows of one element, the
 # serving page (a flattened bfloat16 page of 2 x 32 layers x 64 x 4 x 128)
 K6_EDGE_SHAPES = [(2**16 + 3,), (3, 9000), (4100, 1), (2, 3, 1), (5, 1, 7), (2097152,)]
+# K4 and K5 at every layout of K4's neighbour windows (2-D and 3-D rows of at
+# least a tile, 3-D planes of at least a tile with short rows, rows of one
+# element) and at the serving page; K2/K3 at odd tile counts
+K4_EDGE_SHAPES = [(3, 5000), (2, 3, 5000), (3, 2, 2100), (4100, 1), (2097152,)]
+K3_TILE_COUNTS = (1, 3, 5, 9)
 NONFINITE = [1.0, float("nan"), float("inf"), float("-inf"), 3e38]
 L2_FLUSH_BYTES = 64 << 20   # written between launches for L2-cold times (L2 is 50 MB)
 # the serving trace and pool (Yi-6B full config, cut in depth of nothing)
@@ -214,10 +225,10 @@ def outlier_slots(n, kind, seed, dev):
 
 
 def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
-                   cold_ms) -> tuple[dict, dict]:
+                   cold_ms) -> tuple[dict, dict, dict]:
     """Phases 7-10: K7 against its plain version, the Yi-6B serving trace on both
     routes, the whole-cache path and the serving times. Returns K7's row and K6's
-    numbers at the serving page."""
+    and K4's numbers at the serving page."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -582,7 +593,36 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
             f"bit-identical to its plain version")
     k6_page = {"shape": list(c.shape), "ms": ms6, "ms_l2_cold": cold6, "plain_ms": plain_ms6,
                "bound_ms": bound6, "bound_by": by6}
-    return k7_row, k6_page
+
+    # K4 at the serving page: one raw page of the page set, compressed as the
+    # pool parks it (1-D bfloat16, the pool's resolved bound and capacity)
+    raw = next(p for p in pool.pages.values() if p.slot is not None)
+    flat = pool.slots[raw.slot].reshape(-1)
+    cap4, mode4 = pool._page_capacity, pool._fzc.code_mode
+    k4 = lambda: kernels.fused_compress(flat, pool.eb_abs, capacity=cap4, code_mode=mode4)  # noqa
+    plain4 = lambda: ref.fused_compress_ref(flat, pool.eb_abs, capacity=cap4,  # noqa: E731
+                                            code_mode=mode4)
+    got, want = k4(), plain4()
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        if not torch.equal(g_.to(torch.int64), w_.to(torch.int64)):
+            raise AssertionError("K4 differs from its plain version at the serving page")
+    n4, nnz4 = flat.numel(), int(got[2])
+    nbytes4 = n4 * flat.element_size() + got[0].numel() * 4 + min(nnz4, cap4) * 16 + 4
+    bytes4, ops4 = nbytes4 / HBM_BYTES_PER_S * 1e3, n4 * OPS_PER_CODE["fused_compress"] \
+        / FP32_OPS_PER_S * 1e3
+    bound4, by4 = max((bytes4, "bytes"), (ops4, "operations"))
+    ms4, cold4 = device_ms(k4, iters=50), cold_ms(k4, iters=50)
+    plain_ms4 = cuda_ms(plain4, iters=10)
+    say(10, f"{card} | K4 at the serving page per call on the card: {breakdown(k4)}")
+    say(10, f"{card} | K4 at the serving page ({n4} elements, {flat.dtype}, eb_abs "
+            f"{float(pool.eb_abs):.4g}, {nnz4} of {cap4} blocks): {ms4:.4f} ms on the card "
+            f"L2-warm, {cold4:.4f} ms L2-cold; plain {plain_ms4:.4f} ms; bound {bound4:.4f} ms "
+            f"by {by4} ({nbytes4 / 1e6:.2f} MB), {100 * bound4 / ms4:.1f}% of bound warm, "
+            f"{100 * bound4 / cold4:.1f}% cold; bit-identical to its plain version")
+    k4_page = {"shape": [n4], "ms": ms4, "ms_l2_cold": cold4, "plain_ms": plain_ms4,
+               "bound_ms": bound4, "bound_by": by4}
+    return k7_row, k6_page, k4_page
 
 
 def main() -> int:
@@ -718,6 +758,46 @@ def main() -> int:
     say(2, f"K6 bit-identical to its plain version at its edge shapes {K6_EDGE_SHAPES} in "
            f"{k6_cases} cases (outlier slots none / few, repeated and at n / overflowing every "
            f"bin / all in one tile) ({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    k4_cases = 0
+    for shape in K4_EDGE_SHAPES:
+        x32 = field("particle" if len(shape) == 1 else "turbulent", shape, seed=9)
+        for dtype in (torch.float32, torch.bfloat16):
+            off = torch.empty(x32.numel() + 3, dtype=dtype, device=dev)[3:].view(shape)
+            for where, x in (("own allocation", x32.to(dtype)), ("3 elements off 16 B",
+                                                                 off.copy_(x32))):
+                eb = rt.resolve_eb(x, rt.FZConfig(eb=1e-3))
+                for code_mode in ("sign_mag", "zigzag"):
+                    flat = shuffle.pad_to_tiles(
+                        ref.lorenzo_quant_ref(x, eb, code_mode=code_mode).reshape(-1))
+                    for capf in (1.0, 0.25):
+                        what = f"edge {shape} {dtype} {where} {code_mode} capacity {capf}"
+                        cap = rt.FZConfig(capacity_frac=capf).payload_capacity(x.numel())
+                        hold("fused_compress",
+                             kernels.fused_compress(x, eb, capacity=cap, code_mode=code_mode),
+                             ref.fused_compress_ref(x, eb, capacity=cap, code_mode=code_mode),
+                             what)
+                        hold("fused_shuffle_encode",
+                             kernels.fused_shuffle_encode(flat, capacity=cap),
+                             ref.fused_shuffle_encode_ref(flat, capacity=cap), what)
+                        k4_cases += 1
+    rng = np.random.default_rng(5)
+    for n_tiles in K3_TILE_COUNTS:
+        size = n_tiles * shuffle.TILE
+        codes = rng.integers(0, 1 << 16, size=size) * (rng.random(size) < 0.5)
+        tiles = torch.from_numpy(codes.astype(np.int32)).to(torch.uint16).reshape(
+            n_tiles, shuffle.TILE).to(dev)
+        k2 = kernels.bitshuffle_flag(tiles)
+        hold("bitshuffle_flag", k2, ref.bitshuffle_flag_ref(tiles), f"{n_tiles} tiles")
+        k3 = kernels.bitunshuffle_tiles(k2[0])
+        hold("bitunshuffle_tiles", k3, ref.bitunshuffle_ref(k2[0]), f"{n_tiles} tiles")
+        if not same(k3, tiles):
+            raise AssertionError(f"K3 does not invert K2 at {n_tiles} tiles")
+    torch.cuda.synchronize()
+    say(2, f"K4 and K5 bit-identical to their plain versions at {K4_EDGE_SHAPES} in {k4_cases} "
+           f"cases each (float32 and bfloat16, own allocation and 3 elements off 16 bytes, both "
+           f"code modes, capacity 1.0 and 0.25); K2 and K3 at {K3_TILE_COUNTS} tiles of random "
+           f"16-bit codes ({time.time() - t0:.1f} s)")
 
     # -- 3. the main paths: fused and staged routes ---------------------------
     # each path's launches: counts set to 0 just before its calls, read just after
@@ -1032,14 +1112,15 @@ def main() -> int:
                    f"{raw / c_ms / 1e6:.1f} GB/s{card_c}, decompress {d_ms:.3f} ms = "
                    f"{raw / d_ms / 1e6:.1f} GB/s{card_d}, CR {c.compression_ratio():.3f}")
 
-    k7_row, k6_page = serving_phases(card, dev, drive, path_launches, max_err, cuda_ms,
-                                     device_ms, cold_ms)
-    for row in rows:                  # K6 carries both shapes; max_abs_err after phase 10
+    k7_row, k6_page, k4_page = serving_phases(card, dev, drive, path_launches, max_err,
+                                              cuda_ms, device_ms, cold_ms)
+    pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
+    for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10
         row["max_abs_err"] = max_err[row["name"]]
-        if row["name"] == "fused_decompress":
+        if row["name"] in pages:
             row["shapes"] = [{"shape": list(TIMING_SHAPE), "ms": row["ms"],
                               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                              "bound_by": row["bound_by"]}, k6_page]
+                              "bound_by": row["bound_by"]}, pages[row["name"]]]
     rows.append(k7_row)
     say(10, f"total {time.time() - t_start:.1f} s")
     print(card)

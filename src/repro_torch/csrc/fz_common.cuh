@@ -1,12 +1,11 @@
 // Shared pieces of the FZ kernels for Hopper (sm_90a): stream geometry, the
-// quantization codes (K1, K4), the 16x16 bit transpose by warp ballot (K2, K3,
-// K5, K6), and a single-pass decoupled look-back scan across CTAs.
+// quantization of one element and the codes of K1, the 16x16 bit transpose
+// (in registers, one 16-code group a thread, for K3-K6; by warp ballot for
+// K2), and a single-pass decoupled look-back scan across CTAs.
 //
 // Bit convention (the reference's, repro/core/shuffle.py): bit b of element e
 // of a 16-code group lands in bit 15-e of word 15-b, and a tile's words are
-// stored plane-major (word w of group g at w*256 + g). A warp holds 32
-// consecutive codes (two groups); one ballot per bit plane gives both groups'
-// word for that plane after a 32-bit reversal.
+// stored plane-major (word w of group g at w*256 + g).
 #pragma once
 
 #include <cstdint>
@@ -118,8 +117,10 @@ __device__ __forceinline__ long long take_ticket(unsigned* ticket) {
   return s_seg;
 }
 
-// Warp-wide bit transpose of two 16-code groups. Lane l holds code l (element
-// l & 15 of group l >> 4) and gets word l & 15 (bit plane) of group l >> 4.
+// Warp-wide bit transpose of two 16-code groups (K2). Lane l holds code l
+// (element l & 15 of group l >> 4) and gets word l & 15 (bit plane) of group
+// l >> 4: one ballot per bit plane gives both groups' word for that plane
+// after a 32-bit reversal.
 __device__ __forceinline__ unsigned shuffle_warp(unsigned code) {
   const int lane = threadIdx.x & 31;
   unsigned mine = 0;
@@ -132,31 +133,9 @@ __device__ __forceinline__ unsigned shuffle_warp(unsigned code) {
   return mine;
 }
 
-// The inverse: lane l holds word l & 15 of group l >> 4 and gets code l back;
-// the ballot over bit k of the words gives element 15 - k of both groups.
-__device__ __forceinline__ unsigned unshuffle_warp(unsigned word) {
-  const int lane = threadIdx.x & 31;
-  unsigned mine = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const unsigned m = __brev(__ballot_sync(0xffffffffu, (word >> k) & 1u));
-    const unsigned code = lane < 16 ? (m >> 16) : (m & 0xFFFFu);
-    if ((lane & 15) == 15 - k) mine = code;
-  }
-  return mine;
-}
-
-// The inverse for one thread and one 16-code group, in registers: the group's
-// 16 words (bit planes, plane-major in a tile: word w of group g at
-// w * GROUPS_PER_TILE + g) transposed as a 16x16 bit matrix in 4 rounds of
-// masked swaps; code e is then the 16-bit reversal of transposed row 15 - e.
-// About 12 operations a code, where the warp-ballot form costs about 4
-// warp-wide instructions for every code of its warp.
-__device__ __forceinline__ void unshuffle_group(const uint16_t* tile_words, int g,
-                                                unsigned code[16]) {
-  unsigned a[16];
-#pragma unroll
-  for (int w = 0; w < 16; ++w) a[w] = tile_words[w * GROUPS_PER_TILE + g];
+// The 16x16 bit transpose of a group held in registers, in 4 rounds of
+// masked swaps (a transpose is its own inverse).
+__device__ __forceinline__ void transpose16(unsigned a[16]) {
 #pragma unroll
   for (int j = 8, m = 0x00FF; j != 0; j >>= 1, m ^= m << j) {
 #pragma unroll
@@ -166,6 +145,31 @@ __device__ __forceinline__ void unshuffle_group(const uint16_t* tile_words, int 
       a[k] ^= t << j;
     }
   }
+}
+
+// One thread's 16-code group -> its 16 words (bit planes), in registers and
+// in place: row 15 - e of the bit matrix is the 16-bit reversal of code e,
+// and word w is row w of its transpose. About 12 operations a code, where
+// the warp-ballot form costs about 4 warp-wide instructions for every code
+// of its warp.
+__device__ __forceinline__ void shuffle_group(unsigned a[16]) {
+  unsigned r[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) r[15 - e] = __brev(a[e]) >> 16;
+  transpose16(r);
+#pragma unroll
+  for (int w = 0; w < 16; ++w) a[w] = r[w];
+}
+
+// The inverse: group g's 16 words from a plane-major tile (word w at
+// w * GROUPS_PER_TILE + g) -> its 16 codes; code e is the 16-bit reversal of
+// transposed row 15 - e.
+__device__ __forceinline__ void unshuffle_group(const uint16_t* tile_words, int g,
+                                                unsigned code[16]) {
+  unsigned a[16];
+#pragma unroll
+  for (int w = 0; w < 16; ++w) a[w] = tile_words[w * GROUPS_PER_TILE + g];
+  transpose16(a);
 #pragma unroll
   for (int e = 0; e < 16; ++e) code[e] = __brev(a[15 - e]) >> 16;
 }
@@ -183,13 +187,22 @@ __device__ __forceinline__ unsigned to_code(int d, int zigzag) {
   return static_cast<unsigned>(min(z, 0xFFFF)) & 0xFFFFu;
 }
 
-// Codes computed from float data (K1, K4): code(p) re-quantizes the Lorenzo
-// neighbours of element p straight from the input, so no thread depends on
-// another. BF16 is passed as its raw 16 bits and widened exactly. Dims: n
-// elements; row = last axis; plane = last two axes. Pre-quantization is
-// __fdiv_rn (a true IEEE divide) rounded half to even, as the reference; the
-// delta is the inclusion-exclusion over the neighbours in unsigned 32-bit
-// arithmetic, which wraps exactly as the reference's int32 differences do.
+// Pre-quantization of one element: a true IEEE divide (__fdiv_rn, no
+// --use_fast_math), rounded half to even and converted as XLA does (out of
+// range saturates, NaN gives 0: __float2int_rn), as the reference.
+__device__ __forceinline__ unsigned quantize(float v, float two_eb) {
+  return static_cast<unsigned>(__float2int_rn(__fdiv_rn(v, two_eb)));
+}
+
+// BF16 raw bits widened exactly to float.
+__device__ __forceinline__ float widen_bf16(unsigned bits) { return __uint_as_float(bits << 16); }
+
+// Codes computed from float data one at a time (K1): code(p) re-quantizes the
+// Lorenzo neighbours of element p straight from the input, so no thread
+// depends on another. BF16 is passed as its raw 16 bits. Dims: n elements;
+// row = last axis; plane = last two axes. The delta is the inclusion-exclusion
+// over the neighbours in unsigned 32-bit arithmetic, which wraps exactly as
+// the reference's int32 differences do.
 template <bool BF16, int ND>
 struct CodesFromFloat {
   const void* x;
@@ -201,13 +214,9 @@ struct CodesFromFloat {
   __device__ __forceinline__ void prepare() { two_eb = 2.0f * *eb; }
 
   __device__ __forceinline__ unsigned q(int p) const {
-    float v;
-    if (BF16) {
-      v = __uint_as_float(static_cast<unsigned>(static_cast<const uint16_t*>(x)[p]) << 16);
-    } else {
-      v = static_cast<const float*>(x)[p];
-    }
-    return static_cast<unsigned>(__float2int_rn(__fdiv_rn(v, two_eb)));
+    const float v = BF16 ? widen_bf16(static_cast<const uint16_t*>(x)[p])
+                         : static_cast<const float*>(x)[p];
+    return quantize(v, two_eb);
   }
 
   __device__ __forceinline__ unsigned code(int p) const {

@@ -10,22 +10,29 @@
 // into VMEM; a 1D input is viewed as rows of 1024 there, a layout detail that
 // is not part of the function. Here one thread computes one code: it
 // re-quantizes its Lorenzo neighbours from the input (fz_common.cuh's
-// CodesFromFloat, shared with K4, so K1 and K4 give the same codes by
-// construction). Bound: bytes (4n or 2n read, 2n written); the neighbour
-// reads mostly hit L1/L2, and the up to 8 IEEE divides a code are the
-// instruction cost that keeps it off that bound.
+// CodesFromFloat, with the same quantize as K4, which pre-quantizes a tile's
+// neighbourhood once in shared memory instead; chip_smoke.py holds both
+// against their plain versions). Bound: bytes (4n or 2n read, 2n written);
+// the neighbour reads mostly hit L1/L2, and the up to 8 IEEE divides a code
+// are the instruction cost that keeps it off that bound.
 //
 // K2 replaces repro/kernels/bitshuffle_flag.py:bitshuffle_flag (u16 tiles ->
 // plane-major bitshuffled tiles + one u8 nonzero flag per 8-word block), K3
 // replaces :bitunshuffle_tiles (the inverse shuffle). The TPU kernels do the
-// 16x16 bit transpose as a 4-stage masked swap on vector lanes; here it is the
-// warp ballot of K5/K6 (fz_common.cuh), which keeps the reference's
-// (e, b) -> (15-b, 15-e) convention. One CTA per 4096-code tile: the tile is
-// read into shared memory with 16-byte loads, transposed warp by warp between
-// two shared buffers, and written back with 16-byte stores. Bound: bytes (K2:
-// 2n read, 2n + n/8 written; K3: 2n read, 2n written). The plane-major buffer
-// is padded by 8 words a plane so that the 16 planes a warp touches fall in 8
-// banks, not 1.
+// 16x16 bit transpose as a 4-stage masked swap on vector lanes. Both keep the
+// reference's (e, b) -> (15-b, 15-e) convention, one CTA per 4096-code tile,
+// and are bound by bytes (K2: 2n read, 2n + n/8 written; K3: 2n read, 2n
+// written).
+//   * K2: the tile is read into shared memory with 16-byte loads, transposed
+//     by warp ballot (fz_common.cuh's shuffle_warp) between two shared
+//     buffers, and written back with 16-byte stores. The plane-major buffer
+//     is padded by 8 words a plane so that the 16 planes a warp touches fall
+//     in 8 banks, not 1.
+//   * K3: the tile's shuffled words are read into shared memory with 16-byte
+//     loads (plane-major as stored: no padding needed, since thread g reads
+//     word g of each plane), thread g transposes its group in registers
+//     (unshuffle_group, as K6) and writes its 16 codes with two 16-byte
+//     stores, so a warp writes 1 KB contiguous. No second buffer, no ballot.
 //
 // Build without --use_fast_math. Every entry point launches on the caller's
 // stream and returns cudaGetLastError().
@@ -72,23 +79,18 @@ bitshuffle_flag_tiles(const uint16_t* __restrict__ codes, uint16_t* __restrict__
 
 __global__ void __launch_bounds__(THREADS)
 bitunshuffle_tiles_k(const uint16_t* __restrict__ shuffled, uint16_t* __restrict__ codes) {
-  __shared__ __align__(16) uint16_t sh[PLANES * PLANE_STRIDE];  // plane-major
-  __shared__ __align__(16) uint16_t out[TILE];                  // codes, in order
+  __shared__ __align__(16) uint16_t sh[TILE];        // plane-major, as stored
   const long long t = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const uint4* src = reinterpret_cast<const uint4*>(shuffled + t * TILE);
-  for (int b = threadIdx.x; b < BLOCKS_PER_TILE; b += THREADS)
-    *reinterpret_cast<uint4*>(sh + (b >> 5) * PLANE_STRIDE + (b & 31) * 8) = src[b];
+  for (int i = threadIdx.x; i < TILE / 8; i += THREADS) reinterpret_cast<uint4*>(sh)[i] = src[i];
   __syncthreads();
 
-  for (int c = warp; c < TILE / 32; c += WARPS)
-    out[c * 32 + lane] = static_cast<uint16_t>(
-        unshuffle_warp(sh[(lane & 15) * PLANE_STRIDE + 2 * c + (lane >> 4)]));
-  __syncthreads();
-
-  uint4* dst = reinterpret_cast<uint4*>(codes + t * TILE);
-  for (int i = threadIdx.x; i < TILE / 8; i += THREADS)
-    dst[i] = reinterpret_cast<const uint4*>(out)[i];
+  unsigned c[16];
+  unshuffle_group(sh, threadIdx.x, c);
+  uint4* dst = reinterpret_cast<uint4*>(codes + t * TILE + threadIdx.x * 16);
+  dst[0] = make_uint4(c[0] | c[1] << 16, c[2] | c[3] << 16, c[4] | c[5] << 16, c[6] | c[7] << 16);
+  dst[1] = make_uint4(c[8] | c[9] << 16, c[10] | c[11] << 16, c[12] | c[13] << 16,
+                      c[14] | c[15] << 16);
 }
 
 }  // namespace fz

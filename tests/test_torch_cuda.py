@@ -24,6 +24,9 @@ pytestmark = pytest.mark.cuda
 
 SHAPES = [(5000,), (37, 130), (9, 33, 70), (3, 4096), (2, 64, 64), (70000,),
           (1,), (4096,), (3, 1, 7), (5000, 1), (1, 4097)]
+# every layout of K4's neighbour windows: 2-D and 3-D rows of at least a tile,
+# 3-D planes of at least a tile with short rows, rows of 1
+K4_EDGE_SHAPES = [(3, 5000), (2, 3, 5000), (3, 2, 2100), (4100, 1)]
 
 
 @pytest.fixture
@@ -46,7 +49,7 @@ def _equal(a, b):
                        else b.cpu())
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + K4_EDGE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("code_mode", ["sign_mag", "zigzag"])
 @pytest.mark.parametrize("capacity_frac", [1.0, 0.25])
@@ -60,7 +63,29 @@ def test_fused_compress_matches_plain(cuda, shape, dtype, code_mode, capacity_fr
         assert _equal(g, w)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", [(5000,), (9, 33, 70), (2, 3, 5000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 3, 5])
+def test_fused_compress_of_a_view_off_16_bytes_matches_plain(cuda, shape, dtype, offset):
+    """K4 reads 16-byte chunks aligned to the data's address, not to its start;
+    K5 reads codes that do not start on 16 bytes with 2-byte loads."""
+    n = int(np.prod(shape))
+    buf = _field((n + 8,)).to(dtype).to(cuda)
+    x = buf[offset:offset + n].view(shape)
+    eb = torch.tensor(1e-3, device=cuda) * (x.float().amax() - x.float().amin())
+    cap = FZConfig(capacity_frac=0.25).payload_capacity(n)
+    got = kernels.fused_compress(x, eb, capacity=cap)
+    for g, w in zip(got, ref.fused_compress_ref(x, eb, capacity=cap)):
+        assert _equal(g, w)
+    codes = shuffle.pad_to_tiles(ref.lorenzo_quant_ref(x, eb).reshape(-1))
+    flat = torch.empty(codes.numel() + offset, dtype=torch.uint16, device=cuda)[offset:]
+    flat.copy_(codes)
+    got = kernels.fused_shuffle_encode(flat, capacity=cap)
+    for g, w in zip(got, ref.fused_shuffle_encode_ref(codes, capacity=cap)):
+        assert _equal(g, w)
+
+
+@pytest.mark.parametrize("shape", SHAPES + K4_EDGE_SHAPES)
 @pytest.mark.parametrize("capacity_frac", [1.0, 0.25])
 def test_fused_shuffle_encode_matches_plain(cuda, shape, capacity_frac):
     rng = np.random.default_rng(1)
@@ -156,7 +181,7 @@ def test_lorenzo_quant_matches_plain(cuda, shape, dtype, code_mode):
     assert _equal(got, ref.lorenzo_quant_ref(x, eb, code_mode=code_mode))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + K4_EDGE_SHAPES)
 def test_bitshuffle_flag_and_unshuffle_match_plain(cuda, shape):
     rng = np.random.default_rng(2)
     n = int(np.prod(shape))

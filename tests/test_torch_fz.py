@@ -161,7 +161,10 @@ def test_roundtrip_holds_the_error_bound():
 # Plain K4/K5/K6 against the reference's fused kernels (Pallas interpret mode)
 # ---------------------------------------------------------------------------
 
-KERNEL_SHAPES = [(5000,), (37, 130), (9, 33, 70)]
+# the last four reach every layout of K4's neighbour windows: 2-D and 3-D rows
+# of at least a tile, 3-D planes of at least a tile with short rows, rows of 1
+KERNEL_SHAPES = [(5000,), (37, 130), (9, 33, 70), (3, 5000), (2, 3, 5000), (3, 2, 2100),
+                 (4100, 1)]
 
 
 @pytest.mark.parametrize("shape", KERNEL_SHAPES)

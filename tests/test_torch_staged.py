@@ -115,7 +115,7 @@ def test_plain_k1_matches_reference_kernel(ref, kind, shape, eb_rel, jumps, dtyp
                     else got.to(torch.int32)).max()) == top
 
 
-@pytest.mark.parametrize("n_tiles", [1, 3])
+@pytest.mark.parametrize("n_tiles", [1, 2, 3, 5])
 def test_plain_k2_k3_match_reference_kernels(ref, n_tiles):
     from repro.kernels import bitshuffle_flag as jbsf
     codes = _codes(n_tiles, n_tiles)
