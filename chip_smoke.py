@@ -20,7 +20,9 @@ Phases (each prints its own lines):
      and K5 at the shapes that reach every layout of K4's neighbour windows
      and at the serving page, float32 and bfloat16, both code modes,
      capacity 1.0 and 0.25, the data at its own allocation and 3 elements
-     past a 16-byte boundary; and K2/K3 at odd tile counts;
+     past a 16-byte boundary; K1 at those shapes and at the edges of its walk
+     along the leading axis, the same dtypes, places and code modes; and
+     K2/K3 at odd tile counts;
   3. run the main paths through the public entry points (``compress`` /
      ``decompress``) on SDRBench-sized proxies at rel eb 1e-2, 1e-3, 1e-4,
      strict and paper mode: the fused route (the default) and the staged
@@ -142,6 +144,14 @@ K6_EDGE_SHAPES = [(2**16 + 3,), (3, 9000), (4100, 1), (2, 3, 1), (5, 1, 7), (209
 # least a tile, 3-D planes of at least a tile with short rows, rows of one
 # element) and at the serving page; K2/K3 at odd tile counts
 K4_EDGE_SHAPES = [(3, 5000), (2, 3, 5000), (3, 2, 2100), (4100, 1), (2097152,)]
+# K1 (also held at K4_EDGE_SHAPES, whose (3, 5000) walks 2-D rows longer than a
+# tile) at the edges of its walk along the leading axis: a plane of exactly one
+# tile, a plane of 4101 (not a multiple of 8 or 16), one plane, rows of fewer
+# than 16 (every code gated), 1103 planes (prime: not a multiple of any chunk
+# the card's wave gives), and rows too long for two windows in shared memory
+# (the tile step)
+K1_WALK_SHAPES = [(4, 64, 64), (5, 3, 1367), (1, 70, 70), (2, 300, 15), (1103, 64, 64),
+                  (2, 2, 30000)]
 K3_TILE_COUNTS = (1, 3, 5, 9)
 NONFINITE = [1.0, float("nan"), float("inf"), float("-inf"), 3e38]
 L2_FLUSH_BYTES = 64 << 20   # written between launches for L2-cold times (L2 is 50 MB)
@@ -655,9 +665,12 @@ def main() -> int:
     say(1, f"kernels built in {time.time() - t0:.1f} s "
            f"({'compiled ' + ', '.join(logs) if logs else 'found built'}) into {rt.BUILD_DIR}")
     for src, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):
-                say(1, f"  {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):
+                say(1, f"  {src}: {entry}: {line.strip()}")
 
     # -- 2. kernels against their plain versions ---------------------------
     def bits(t):
@@ -759,8 +772,8 @@ def main() -> int:
            f"{k6_cases} cases (outlier slots none / few, repeated and at n / overflowing every "
            f"bin / all in one tile) ({time.time() - t0:.1f} s)")
     t0 = time.time()
-    k4_cases = 0
-    for shape in K4_EDGE_SHAPES:
+    k4_cases = k1_cases = 0
+    for shape in K4_EDGE_SHAPES + K1_WALK_SHAPES:
         x32 = field("particle" if len(shape) == 1 else "turbulent", shape, seed=9)
         for dtype in (torch.float32, torch.bfloat16):
             off = torch.empty(x32.numel() + 3, dtype=dtype, device=dev)[3:].view(shape)
@@ -768,8 +781,13 @@ def main() -> int:
                                                                  off.copy_(x32))):
                 eb = rt.resolve_eb(x, rt.FZConfig(eb=1e-3))
                 for code_mode in ("sign_mag", "zigzag"):
-                    flat = shuffle.pad_to_tiles(
-                        ref.lorenzo_quant_ref(x, eb, code_mode=code_mode).reshape(-1))
+                    k1_plain = ref.lorenzo_quant_ref(x, eb, code_mode=code_mode)
+                    hold("lorenzo_quant", kernels.lorenzo_quant(x, eb, code_mode=code_mode),
+                         k1_plain, f"edge {shape} {dtype} {where} {code_mode}")
+                    k1_cases += 1
+                    if shape not in K4_EDGE_SHAPES:
+                        continue
+                    flat = shuffle.pad_to_tiles(k1_plain.reshape(-1))
                     for capf in (1.0, 0.25):
                         what = f"edge {shape} {dtype} {where} {code_mode} capacity {capf}"
                         cap = rt.FZConfig(capacity_frac=capf).payload_capacity(x.numel())
@@ -796,8 +814,9 @@ def main() -> int:
     torch.cuda.synchronize()
     say(2, f"K4 and K5 bit-identical to their plain versions at {K4_EDGE_SHAPES} in {k4_cases} "
            f"cases each (float32 and bfloat16, own allocation and 3 elements off 16 bytes, both "
-           f"code modes, capacity 1.0 and 0.25); K2 and K3 at {K3_TILE_COUNTS} tiles of random "
-           f"16-bit codes ({time.time() - t0:.1f} s)")
+           f"code modes, capacity 1.0 and 0.25); K1 there and at its walk's edge shapes "
+           f"{K1_WALK_SHAPES} in {k1_cases} cases (the same dtypes, places and code modes); K2 "
+           f"and K3 at {K3_TILE_COUNTS} tiles of random 16-bit codes ({time.time() - t0:.1f} s)")
 
     # -- 3. the main paths: fused and staged routes ---------------------------
     # each path's launches: counts set to 0 just before its calls, read just after

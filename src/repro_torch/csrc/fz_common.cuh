@@ -1,7 +1,8 @@
 // Shared pieces of the FZ kernels for Hopper (sm_90a): stream geometry, the
-// quantization of one element and the codes of K1, the 16x16 bit transpose
-// (in registers, one 16-code group a thread, for K3-K6; by warp ballot for
-// K2), and a single-pass decoupled look-back scan across CTAs.
+// quantization of one element and its saturating code, the 16x16 bit
+// transpose (in registers, one 16-code group a thread, for K2-K6), and a
+// single-pass decoupled look-back scan across CTAs. The Lorenzo codes from
+// pre-quantized windows (K1, K4) are in fz_windows.cuh.
 //
 // Bit convention (the reference's, repro/core/shuffle.py): bit b of element e
 // of a 16-code group lands in bit 15-e of word 15-b, and a tile's words are
@@ -117,22 +118,6 @@ __device__ __forceinline__ long long take_ticket(unsigned* ticket) {
   return s_seg;
 }
 
-// Warp-wide bit transpose of two 16-code groups (K2). Lane l holds code l
-// (element l & 15 of group l >> 4) and gets word l & 15 (bit plane) of group
-// l >> 4: one ballot per bit plane gives both groups' word for that plane
-// after a 32-bit reversal.
-__device__ __forceinline__ unsigned shuffle_warp(unsigned code) {
-  const int lane = threadIdx.x & 31;
-  unsigned mine = 0;
-#pragma unroll
-  for (int w = 0; w < 16; ++w) {
-    const unsigned m = __brev(__ballot_sync(0xffffffffu, (code >> (15 - w)) & 1u));
-    const unsigned word = lane < 16 ? (m >> 16) : (m & 0xFFFFu);
-    if ((lane & 15) == w) mine = word;
-  }
-  return mine;
-}
-
 // The 16x16 bit transpose of a group held in registers, in 4 rounds of
 // masked swaps (a transpose is its own inverse).
 __device__ __forceinline__ void transpose16(unsigned a[16]) {
@@ -149,9 +134,7 @@ __device__ __forceinline__ void transpose16(unsigned a[16]) {
 
 // One thread's 16-code group -> its 16 words (bit planes), in registers and
 // in place: row 15 - e of the bit matrix is the 16-bit reversal of code e,
-// and word w is row w of its transpose. About 12 operations a code, where
-// the warp-ballot form costs about 4 warp-wide instructions for every code
-// of its warp.
+// and word w is row w of its transpose. About 12 operations a code.
 __device__ __forceinline__ void shuffle_group(unsigned a[16]) {
   unsigned r[16];
 #pragma unroll
@@ -196,61 +179,6 @@ __device__ __forceinline__ unsigned quantize(float v, float two_eb) {
 
 // BF16 raw bits widened exactly to float.
 __device__ __forceinline__ float widen_bf16(unsigned bits) { return __uint_as_float(bits << 16); }
-
-// Codes computed from float data one at a time (K1): code(p) re-quantizes the
-// Lorenzo neighbours of element p straight from the input, so no thread
-// depends on another. BF16 is passed as its raw 16 bits. Dims: n elements;
-// row = last axis; plane = last two axes. The delta is the inclusion-exclusion
-// over the neighbours in unsigned 32-bit arithmetic, which wraps exactly as
-// the reference's int32 differences do.
-template <bool BF16, int ND>
-struct CodesFromFloat {
-  const void* x;
-  const float* eb;                 // device scalar: the absolute error bound
-  int n, row, plane;
-  int zigzag;
-  float two_eb;
-
-  __device__ __forceinline__ void prepare() { two_eb = 2.0f * *eb; }
-
-  __device__ __forceinline__ unsigned q(int p) const {
-    const float v = BF16 ? widen_bf16(static_cast<const uint16_t*>(x)[p])
-                         : static_cast<const float*>(x)[p];
-    return quantize(v, two_eb);
-  }
-
-  __device__ __forceinline__ unsigned code(int p) const {
-    if (p >= n) return 0u;                       // zero pad past the data
-    unsigned d = q(p);
-    if (ND == 1) {
-      if (p > 0) d -= q(p - 1);
-    } else if (ND == 2) {
-      const int i = p / row, j = p - i * row;
-      if (j > 0) d -= q(p - 1);
-      if (i > 0) {
-        d -= q(p - row);
-        if (j > 0) d += q(p - row - 1);
-      }
-    } else {
-      const int i = p / plane, r = p - i * plane;
-      const int j = r / row, k = r - j * row;
-      if (k > 0) d -= q(p - 1);
-      if (j > 0) {
-        d -= q(p - row);
-        if (k > 0) d += q(p - row - 1);
-      }
-      if (i > 0) {
-        d -= q(p - plane);
-        if (k > 0) d += q(p - plane - 1);
-        if (j > 0) {
-          d += q(p - plane - row);
-          if (k > 0) d -= q(p - plane - row - 1);
-        }
-      }
-    }
-    return to_code(static_cast<int>(d), zigzag);
-  }
-};
 
 // Exclusive count of set flags before block b of a tile's packed flags.
 __device__ __forceinline__ unsigned flags_before(const uint32_t* fw, int b) {

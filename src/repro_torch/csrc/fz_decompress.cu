@@ -18,9 +18,8 @@
 //   2. decode_scan_rows: one CTA per 4096-element tile: payload offset by
 //      look-back over the tiles' flag counts; gather (zero if unflagged or
 //      past capacity); unshuffle in registers, one 16-code group a thread
-//      (a 16x16 bit transpose, about 12 operations a code, where the warp-
-//      ballot form takes about 4 warp-wide instructions a code); code ->
-//      int32 delta; the tile's
+//      (a 16x16 bit transpose, about 12 operations a code); code -> int32
+//      delta; the tile's
 //      residuals added through shared memory; then the inclusive prefix
 //      along the last axis as a segmented scan in flat order, resetting at
 //      every row start, chained across tiles by a segmented look-back (a tile

@@ -23,7 +23,7 @@ from ..device import ARCH, BUILD_DIR
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fz_compress.cu", "fz_decompress.cu", "fz_staged.cu", "flash_decode.cu")
-HEADERS = ("fz_common.cuh",)
+HEADERS = ("fz_common.cuh", "fz_windows.cuh")
 # no --use_fast_math: the kernels need IEEE divides and multiplies
 NVCC_FLAGS = ("-gencode", f"arch=compute_{ARCH[3:]},code={ARCH}", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -27,6 +27,13 @@ SHAPES = [(5000,), (37, 130), (9, 33, 70), (3, 4096), (2, 64, 64), (70000,),
 # every layout of K4's neighbour windows: 2-D and 3-D rows of at least a tile,
 # 3-D planes of at least a tile with short rows, rows of 1
 K4_EDGE_SHAPES = [(3, 5000), (2, 3, 5000), (3, 2, 2100), (4100, 1)]
+# K1's walk along the leading axis (K4_EDGE_SHAPES' (3, 5000) walks 2-D rows
+# longer than a tile): a plane of exactly one tile, a plane of 4101 (not a
+# multiple of 8 or 16), one plane, rows of fewer than 16 (every code gated),
+# 1103 planes (prime: not a multiple of any chunk), and rows too long for two
+# windows in shared memory (the tile step)
+K1_WALK_SHAPES = [(4, 64, 64), (5, 3, 1367), (1, 70, 70), (2, 300, 15), (1103, 64, 64),
+                  (2, 2, 30000)]
 
 
 @pytest.fixture
@@ -170,7 +177,7 @@ def test_fused_decompress_edge_shapes_and_slots_match_plain(cuda, shape, code_mo
         assert _equal(got, cpu)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + K4_EDGE_SHAPES + K1_WALK_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("code_mode", ["sign_mag", "zigzag"])
 def test_lorenzo_quant_matches_plain(cuda, shape, dtype, code_mode):
@@ -179,6 +186,20 @@ def test_lorenzo_quant_matches_plain(cuda, shape, dtype, code_mode):
     got = kernels.lorenzo_quant(x, eb, code_mode=code_mode)
     assert got.dtype == torch.uint16 and got.shape == x.shape
     assert _equal(got, ref.lorenzo_quant_ref(x, eb, code_mode=code_mode))
+
+
+@pytest.mark.parametrize("shape", [(5000,), (9, 33, 70), (2, 3, 5000), (5, 3, 1367),
+                                   (3, 5000), (4, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 3, 5])
+def test_lorenzo_quant_of_a_view_off_16_bytes_matches_plain(cuda, shape, dtype, offset):
+    """K1 reads 16-byte chunks aligned to the data's address, not to its start."""
+    n = int(np.prod(shape))
+    buf = _field((n + 8,)).to(dtype).to(cuda)
+    x = buf[offset:offset + n].view(shape)
+    eb = torch.tensor(1e-3, device=cuda) * (x.float().amax() - x.float().amin())
+    got = kernels.lorenzo_quant(x, eb)
+    assert _equal(got, ref.lorenzo_quant_ref(x, eb))
 
 
 @pytest.mark.parametrize("shape", SHAPES + K4_EDGE_SHAPES)

@@ -12,7 +12,7 @@
   vmapped forms, and each row against its single-row call;
   ``tree_compress`` / ``tree_decompress`` against the reference's.
 
-Inputs stay at 4 tiles or fewer: the Pallas interpreter is slow. On jax 0.9
+Inputs stay at about 30k elements or fewer: the Pallas interpreter is slow. On jax 0.9
 the reference needs two aliases; the ``ref`` fixture sets them for one test
 and clears JAX's caches afterwards, so no other test sees them.
 """
@@ -93,6 +93,15 @@ K1_CASES = [
     ("smooth", (37, 130), 1e-3, False),
     ("turbulent", (9, 33, 40), 1e-3, False),
     ("turbulent", (5, 7, 11), 1e-6, True),
+    # the layouts of the card kernel's walk along the leading axis: a plane of
+    # exactly one tile, a plane of 4101 (not a multiple of 8 or 16), one plane,
+    # 2-D rows longer than a tile, and 7 planes (not a multiple of a chunk of
+    # 2 or 4 planes)
+    ("turbulent", (4, 64, 64), 1e-3, False),
+    ("turbulent", (5, 3, 1367), 1e-3, False),
+    ("smooth", (1, 70, 70), 1e-3, False),
+    ("smooth", (3, 5000), 1e-3, False),
+    ("turbulent", (7, 64, 64), 1e-4, False),
 ]
 
 
