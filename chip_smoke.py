@@ -21,8 +21,10 @@ Phases (each prints its own lines):
      and at the serving page, float32 and bfloat16, both code modes,
      capacity 1.0 and 0.25, the data at its own allocation and 3 elements
      past a 16-byte boundary; K1 at those shapes and at the edges of its walk
-     along the leading axis, the same dtypes, places and code modes; and
-     K2/K3 at odd tile counts;
+     along the leading axis, the same dtypes, places and code modes; K5 at
+     tile counts around one wave of its CTAs, capacity 1.0 and 0.25, its
+     payload allocated on a freed block of 0xFFFF (a tail left unzeroed would
+     show); and K2/K3 at odd tile counts;
   3. run the main paths through the public entry points (``compress`` /
      ``decompress``) on SDRBench-sized proxies at rel eb 1e-2, 1e-3, 1e-4,
      strict and paper mode: the fused route (the default) and the staged
@@ -43,7 +45,9 @@ Phases (each prints its own lines):
      to 0 just before each path's calls and read just after), each kernel
      above 0 on its path;
   6. CUDA-event times at (100, 500, 500): each kernel, its plain version and
-     its bound; compress/decompress GB/s and ratio of the fused, staged and
+     its bound (K4 and K5 write their whole capacity-sized payload, so their
+     bound counts it); K5 also at a quarter capacity, one tile and one wave
+     plus a tile; compress/decompress GB/s and ratio of the fused, staged and
      plain routes;
   7. K7 flash-decode against its plain version (the same split of the pages
      and combine) on the card at 2e-4 (float32 sums in another order): the
@@ -81,7 +85,16 @@ Phases (each prints its own lines):
      K6 at the serving page (a parked 1-D bfloat16 page of 2,097,152
      elements at the pool's bound) and K4 at the serving page (a raw page of
      the page set, compressed as the pool parks it): time L2-warm and
-     L2-cold, plain time and bound.
+     L2-cold, plain time and bound;
+  11. the paper's comparison on the three proxies at rel eb 1e-2, 1e-3 and
+     1e-4: FZ on the fused route in strict and paper mode (compress and
+     decompress GB/s with the host included and card-only beside them, CR,
+     bitrate, PSNR, max_err/eb, SSIM of the middle plane of 3-D fields), the
+     cuSZ-like baseline (host numpy: CR, bitrate, PSNR and host seconds), the
+     cuSZx-like baseline and the cuZFP-like one at the rate whose PSNR is
+     closest to FZ's (torch-op proxies on the card: round-trip GB/s, CR,
+     PSNR), and FZ over cuZFP-like in round-trip speed and CR. Raises on a
+     broken error bound.
 
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
@@ -153,6 +166,9 @@ K4_EDGE_SHAPES = [(3, 5000), (2, 3, 5000), (3, 2, 2100), (4100, 1), (2097152,)]
 K1_WALK_SHAPES = [(4, 64, 64), (5, 3, 1367), (1, 70, 70), (2, 300, 15), (1103, 64, 64),
                   (2, 2, 30000)]
 K3_TILE_COUNTS = (1, 3, 5, 9)
+# K5 at tile counts around one wave of its CTAs (`wave`: how many the card
+# runs at once)
+K5_TILES = ("1", "2", "5", "wave - 1", "wave", "wave + 1", "3 * wave + 7")
 NONFINITE = [1.0, float("nan"), float("inf"), float("-inf"), 3e38]
 L2_FLUSH_BYTES = 64 << 20   # written between launches for L2-cold times (L2 is 50 MB)
 # the serving trace and pool (Yi-6B full config, cut in depth of nothing)
@@ -182,6 +198,7 @@ MAIN_FIELDS = [
     ("HACC-like particle (cut from 280953867)", "particle", (1 << 26,)),
 ]
 EBS = (1e-2, 1e-3, 1e-4)
+ZFP_RATES = (2, 4, 6, 8, 10, 12, 14, 16)   # the rate search of benchmarks/bench_rate_distortion.py
 TIMING_SHAPE = (100, 500, 500)
 
 
@@ -618,7 +635,7 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
         if not torch.equal(g_.to(torch.int64), w_.to(torch.int64)):
             raise AssertionError("K4 differs from its plain version at the serving page")
     n4, nnz4 = flat.numel(), int(got[2])
-    nbytes4 = n4 * flat.element_size() + got[0].numel() * 4 + min(nnz4, cap4) * 16 + 4
+    nbytes4 = n4 * flat.element_size() + got[0].numel() * 4 + cap4 * 16 + 4   # whole payload
     bytes4, ops4 = nbytes4 / HBM_BYTES_PER_S * 1e3, n4 * OPS_PER_CODE["fused_compress"] \
         / FP32_OPS_PER_S * 1e3
     bound4, by4 = max((bytes4, "bytes"), (ops4, "operations"))
@@ -635,6 +652,84 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
     return k7_row, k6_page, k4_page
 
 
+def paper_comparison(card, dev, fields, cuda_ms, device_ms) -> None:
+    """Phase 11: the paper's comparison on the card (Fig. 7, §4.3-4.4): FZ on
+    the fused route against the cuSZ-, cuSZx- and cuZFP-like baselines on the
+    main-path proxies at each error bound. Raises on a broken error bound."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import baselines, metrics, quant
+
+    t_phase = time.time()
+    say(11, "baselines are this repository's proxies (core/baselines.py), not cuSZ, cuSZx or "
+            "cuZFP: cuSZ-like runs host numpy (host seconds, no GB/s); cuSZx-like and "
+            "cuZFP-like are torch ops on the card, each call a round trip (GB/s of raw input)")
+    for name, x in fields.items():
+        raw = x.numel() * 4
+        maxabs = float(x.abs().max())
+        x_host = x.cpu().numpy()
+        mid = x.shape[0] // 2
+        # cuZFP-like at every rate of the search once (its PSNR does not depend on eb)
+        zfp = {}
+        for rate in ZFP_RATES:
+            rz, bz = baselines.cuzfp_like(x, rate)
+            zfp[rate] = (metrics.psnr(x, rz), bz)
+            del rz
+        for eb_rel in EBS:
+            fz = {}
+            for mode, exact in (("strict", True), ("paper", False)):
+                cfg = rt.FZConfig(eb=eb_rel, exact_outliers=exact)
+                c = rt.compress(x, cfg)
+                y = rt.decompress(c, cfg)
+                eb_abs = float(c.eb_abs)
+                err = metrics.max_abs_err(x, y)
+                if mode == "strict":
+                    n_over = int(quant.dual_quantize(x, c.eb_abs)[3])
+                limit = eb_abs * (1 + 2**-20) + maxabs * 2**-22
+                if n_over <= cfg.outlier_capacity(x.numel()) and not err <= limit:
+                    raise AssertionError(f"{name} {mode} eb={eb_rel}: error bound broken, "
+                                         f"max_err/eb {err / eb_abs:.6f}")
+                c_ms = cuda_ms(lambda: rt.compress(x, cfg), iters=5)
+                d_ms = cuda_ms(lambda: rt.decompress(c, cfg), iters=5)
+                # card-only times where the call never waits on the card (strict
+                # compress reads the outlier count)
+                card_c = (f"{raw / device_ms(lambda: rt.compress(x, cfg), iters=5) / 1e6:.1f}"
+                          if not exact else "not isolated")
+                card_d = raw / device_ms(lambda: rt.decompress(c, cfg), iters=5) / 1e6
+                ssim = (f", SSIM (middle plane) {metrics.ssim2d(x[mid], y[mid]):.6f}"
+                        if x.ndim == 3 else "")
+                fz[mode] = dict(rt_ms=c_ms + d_ms, cr=c.compression_ratio(), psnr=metrics.psnr(x, y))
+                fz[mode]["text"] = (
+                    f"FZ {mode}: compress {raw / c_ms / 1e6:.1f} GB/s (card {card_c}), decompress "
+                    f"{raw / d_ms / 1e6:.1f} GB/s (card {card_d:.1f}), CR {c.compression_ratio():.3f}, "
+                    f"bitrate {metrics.bitrate(raw, c.used_bytes()):.4f}, PSNR {fz[mode]['psnr']:.2f} dB, "
+                    f"max_err/eb {err / eb_abs:.6f}{ssim}")
+            t = time.perf_counter()
+            cz = baselines.cusz_like(x_host, eb_abs)
+            cz_s = time.perf_counter() - t
+            psnr_cz = metrics.psnr(x, torch.from_numpy(cz.reconstruction).to(dev))
+            eb_t = torch.tensor(eb_abs, dtype=torch.float32, device=dev)
+            rx, bx = baselines.cuszx_like(x, eb_t)
+            psnr_x = metrics.psnr(x, rx)
+            del rx
+            x_ms = cuda_ms(lambda: baselines.cuszx_like(x, eb_t), iters=3, warmup=1)
+            # the rate whose PSNR is closest to FZ's (benchmarks/bench_rate_distortion.py)
+            rate = min(ZFP_RATES, key=lambda r: abs(zfp[r][0] - fz["strict"]["psnr"]))
+            psnr_z, bz = zfp[rate]
+            z_ms = cuda_ms(lambda: baselines.cuzfp_like(x, rate), iters=3, warmup=1)
+            say(11, f"{card} | {name} {tuple(x.shape)} rel eb {eb_rel}: "
+                    + "; ".join(fz[m]["text"] for m in fz)
+                    + f"; cuSZ-like (host) {cz_s:.2f} s host, CR {raw / cz.compressed_bytes:.3f}, "
+                    f"bitrate {metrics.bitrate(raw, cz.compressed_bytes):.4f}, PSNR {psnr_cz:.2f} dB; "
+                    f"cuSZx-like (torch-op proxy) {raw / x_ms / 1e6:.1f} GB/s round trip, CR "
+                    f"{raw / bx:.3f}, PSNR {psnr_x:.2f} dB; cuZFP-like (torch-op proxy) rate {rate} "
+                    f"{raw / z_ms / 1e6:.1f} GB/s round trip, CR {raw / bz:.3f}, PSNR {psnr_z:.2f} "
+                    f"dB; FZ / cuZFP-like: round-trip speed " + ", ".join(
+                        f"{m} {z_ms / fz[m]['rt_ms']:.2f}x" for m in fz) + ", CR " + ", ".join(
+                        f"{m} {fz[m]['cr'] / (raw / bz):.2f}x" for m in fz))
+    say(11, f"paper comparison done in {time.time() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -647,6 +742,7 @@ def main() -> int:
     from repro_torch.core import metrics, quant, shuffle
     from repro_torch.data.fields import make_field
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels.fused_compress import shuffle_encode_ctas
 
     # bfloat16 GEMMs reduce split-K partials in float32, as the reference's
     # dense accumulates (set here: the port's modules change no global state)
@@ -811,7 +907,34 @@ def main() -> int:
         hold("bitunshuffle_tiles", k3, ref.bitunshuffle_ref(k2[0]), f"{n_tiles} tiles")
         if not same(k3, tiles):
             raise AssertionError(f"K3 does not invert K2 at {n_tiles} tiles")
+    # K5 at tile counts around one wave, each payload allocated right after a
+    # same-sized block of 0xFFFF is freed, so a tail left unzeroed would show
+    wave = shuffle_encode_ctas()
+    k5_counts = [eval(t, {"wave": wave}) for t in K5_TILES]
+    k5_cases = landed = 0
+    for n_tiles in k5_counts:
+        codes = torch.from_numpy((rng.geometric(0.15, n_tiles * shuffle.TILE) - 1).astype(
+            np.int32)).to(torch.uint16).to(dev)
+        codes.view(n_tiles, -1)[1::3, 1000:3000] = 0
+        for capf in (1.0, 0.25):
+            cap = rt.FZConfig(capacity_frac=capf).payload_capacity(codes.numel())
+            want = ref.fused_shuffle_encode_ref(codes, capacity=cap)
+            for off in (0, 3):
+                flat = torch.empty(codes.numel() + off, dtype=torch.uint16, device=dev)[off:]
+                flat.copy_(codes)
+                poison = torch.full((cap, 8), -1, dtype=torch.int16, device=dev)
+                ptr = poison.data_ptr()
+                del poison
+                got = kernels.fused_shuffle_encode(flat, capacity=cap)
+                landed += got[1].data_ptr() == ptr
+                hold("fused_shuffle_encode", got, want,
+                     f"{n_tiles} tiles (wave {wave}) capacity {capf} {off} elements off 16 B")
+                k5_cases += 1
     torch.cuda.synchronize()
+    say(2, f"K5 bit-identical to its plain version, whole payload, at {k5_counts} tiles (one "
+           f"wave: {wave} CTAs), capacity 1.0 and 0.25 (nnz past the capacity there), own "
+           f"allocation and 3 elements off 16 bytes, in {k5_cases} cases; {landed} payloads "
+           f"landed on a freed block of 0xFFFF")
     say(2, f"K4 and K5 bit-identical to their plain versions at {K4_EDGE_SHAPES} in {k4_cases} "
            f"cases each (float32 and bfloat16, own allocation and 3 elements off 16 bytes, both "
            f"code modes, capacity 1.0 and 0.25); K1 there and at its walk's edge shapes "
@@ -1050,6 +1173,10 @@ def main() -> int:
     bf, payload, nnz = kernels.fused_shuffle_encode(flat, capacity=cap)
     used = min(int(nnz), cap) * 16
     flag_bytes = bf.numel() * 4
+    # K4 and K5 write their whole capacity-sized payload, zero past nnz (the TPU
+    # kernels zero it in their body, repro/kernels/fused_compress.py:306); K6
+    # reads only the used part
+    payload_bytes = cap * 16
     tiles = shuffle.pad_to_tiles(kernels.lorenzo_quant(x, eb).reshape(-1)).reshape(
         -1, shuffle.TILE)
     shuffled, _ = kernels.bitshuffle_flag(tiles)
@@ -1070,11 +1197,11 @@ def main() -> int:
         "fused_compress": (
             lambda: kernels.fused_compress(x, eb, capacity=cap),
             lambda: ref.fused_compress_ref(x, eb, capacity=cap),
-            n * 4 + flag_bytes + used + 4),
+            n * 4 + flag_bytes + payload_bytes + 4),
         "fused_shuffle_encode": (
             lambda: kernels.fused_shuffle_encode(flat, capacity=cap),
             lambda: ref.fused_shuffle_encode_ref(flat, capacity=cap),
-            flat.numel() * 2 + flag_bytes + used + 4),
+            flat.numel() * 2 + flag_bytes + payload_bytes + 4),
         "fused_decompress": (
             lambda: kernels.fused_decompress(bf, payload, eb, shape=tuple(x.shape),
                                              outlier_idx=oidx, outlier_val=oval),
@@ -1105,6 +1232,23 @@ def main() -> int:
                      "launches": path_launches[KERNEL_PATH[name]][name],
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    # K5 at its tail cases: a quarter capacity (short of nnz: no tail), one
+    # tile, one wave plus a tile
+    k5_tail = [(f"{TIMING_SHAPE} capacity 0.25", flat,
+                rt.FZConfig(capacity_frac=0.25).payload_capacity(n))]
+    for n_tiles in (1, wave + 1):
+        part = flat[: n_tiles * shuffle.TILE]
+        k5_tail.append((f"{n_tiles} tiles of {TIMING_SHAPE}'s codes, capacity 1.0", part,
+                        cfg.payload_capacity(part.numel())))
+    for what, part, cap5 in k5_tail:
+        k5 = lambda: kernels.fused_shuffle_encode(part, capacity=cap5)   # noqa: E731
+        nnz5 = int(k5()[2])
+        nbytes5 = part.numel() * 2 + part.numel() // shuffle.TILE * 64 + cap5 * 16 + 4
+        bound5 = nbytes5 / HBM_BYTES_PER_S * 1e3
+        ms5 = device_ms(k5)
+        say(6, f"{card} | fused_shuffle_encode at {what}: {ms5:.4f} ms on the card, nnz {nnz5} "
+               f"of capacity {cap5}, bound {bound5:.4f} ms by bytes ({nbytes5 / 1e6:.2f} MB), "
+               f"{100 * bound5 / ms5:.1f}% of bound")
     raw = n * 4
     routes = {"fused": {}, "staged": dict(kernel_mode="staged"), "plain": dict(use_kernels=False)}
     for exact in (True, False):
@@ -1133,6 +1277,7 @@ def main() -> int:
 
     k7_row, k6_page, k4_page = serving_phases(card, dev, drive, path_launches, max_err,
                                               cuda_ms, device_ms, cold_ms)
+    paper_comparison(card, dev, fields, cuda_ms, device_ms)
     pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
     for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10
         row["max_abs_err"] = max_err[row["name"]]

@@ -4,13 +4,15 @@
 // (K4: float data -> quantize + Lorenzo + bitshuffle + zero-block flags +
 // compaction in one launch) and :fused_shuffle_encode (K5: the same on given
 // u16 codes, the strict-mode route). Output: packed flags u32[16 * tiles],
-// payload u16[capacity, 8] (zeroed by the caller), nnz i32.
+// payload u16[capacity, 8], nnz i32. K4's payload is zeroed by the caller; K5
+// writes every block of its payload, zero past nnz, as the TPU kernel zeroes
+// it in its body.
 //
-// Bound: bytes. The input is read once, the flags and the used payload
-// written once; the function needs one divide per element and a few dozen
+// Bound: bytes. The input is read once, the flags and the payload written
+// once; the function needs one divide per element (K4) and a few dozen
 // integer operations per code, far below the card's rate.
 //
-// Design. One CTA per 4096-code tile of the flat code stream, tiles handed out
+// K4. One CTA per 4096-code tile of the flat code stream, tiles handed out
 // in ticket order. The TPU kernel walks the stream sequentially and carries a
 // code remainder and the payload offset across grid steps; CTAs on the card
 // run in no order, so here
@@ -35,13 +37,34 @@
 //     shared load and one add a code, and the row start is mended after;
 //     other groups gate each code. The deltas become codes, and the group is
 //     transposed in registers (shuffle_group); the 16 words go plane-major
-//     into the shared tile, a conflict-free store. K5 loads its group's 16
-//     codes with two 16-byte loads and shares the rest;
+//     into the shared tile, a conflict-free store;
 //   * the payload offset of a tile is the exclusive prefix of the tiles'
 //     non-zero block counts, from a single-pass decoupled look-back scan.
 // The window buffer is padded by one word every 16 (fz_windows.cuh). The
 // shuffled tile reuses the start of the buffer once every thread has made its
 // codes.
+//
+// K5. One CTA a tile in ticket order, as K4, with these differences:
+//   * two adjacent 16-code groups a thread, 128 threads a tile: 16 tiles in
+//     flight an SM where one group a thread fits 8 (the kernel waits on its
+//     loads, barriers and look-back more than it computes);
+//   * the codes are four 16-byte loads a thread (codes that do not start on
+//     16 bytes pass through shared memory by coalesced 2-byte loads), kept
+//     two to a register, and the 16x16 bit transpose moves two row pairs a
+//     masked swap (shuffle_pairs): about 130 operations a group where
+//     shuffle_group takes about 220; word w of the two groups leaves as one
+//     4-byte store;
+//   * flags from registers: block b of the plane-major tile is word b / 32 of
+//     8 consecutive groups, so its flag is an OR across 4 lanes of a warp,
+//     not a read pass over the tile;
+//   * the payload is written once, in the kernel: every block of a tile
+//     makes one 16-byte store, its words if flagged, else a zero into the
+//     tile's run of the payload's zero tail (shuffle_encode_tiles). No
+//     separate pass zeroes the payload, and no CTA waits for nnz.
+// A co-resident grid of persistent CTAs (a cooperative launch, each CTA
+// taking tiles in turn with the next tile's codes in flight by cp.async and
+// the zero tail written once nnz was known) measured slower than one CTA a
+// tile on the card (PERF.md, section 6).
 //
 // Exactness: the pre-quantization is fz_common.cuh's quantize (a true IEEE
 // divide, round half to even, converted as XLA does), the deltas wrap in
@@ -113,6 +136,165 @@ int launch(const Src& src, size_t smem, int n_tiles, uint32_t* bitflags, uint16_
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- K5 -------------------------------------------------------------------
+
+// shuffle_group on codes as loaded, two to a register (code 2 i in the low
+// half of raw[i]), leaving words 2 q (low half) and 2 q + 1 (high half) in
+// p[q]: the bit matrix's rows 2 q and 2 q + 1 are the halves of the 32-bit
+// reversal of raw[7 - q], and each masked swap of transpose16 moves two row
+// pairs at once (the stage of distance 1 swaps within a register). About
+// 130 operations a group, where shuffle_group takes about 220.
+__device__ __forceinline__ void shuffle_pairs(const unsigned raw[8], unsigned p[8]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) p[q] = __brev(raw[7 - q]);
+#pragma unroll
+  for (int j = 8, m = 0x00FF; j != 1; j >>= 1, m ^= m << j) {
+    const unsigned mm = static_cast<unsigned>(m) | (static_cast<unsigned>(m) << 16);
+    const int h = j >> 1;                      // rows k, k + j are registers q, q + h
+#pragma unroll
+    for (int q = 0; q < 8; q = ((q | h) + 1) & ~h) {
+      const unsigned t = ((p[q] >> j) ^ p[q + h]) & mm;
+      p[q + h] ^= t;
+      p[q] ^= t << j;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {                // distance 1: low and high halves
+    const unsigned t = ((p[q] >> 1) ^ (p[q] >> 16)) & 0x5555u;
+    p[q] ^= (t << 16) | (t << 1);
+  }
+}
+
+constexpr int K5_THREADS = THREADS / 2;   // two adjacent groups a thread
+constexpr int K5_WARPS = K5_THREADS / 32;
+
+// K5: one CTA a tile, in ticket order; thread i takes groups 2 i and 2 i + 1,
+// so 16 CTAs (tiles) are in flight an SM where one group a thread fits 8.
+// Every block of the tile writes one payload block: a flagged block its words
+// at the count of flagged blocks before it; a zero block a zero at zeros + the
+// zero blocks before it in the tile. Tiles t .. n - 1 compact at most
+// 512 (n - t) blocks from tile t's offset, so [zeros, zeros + the tile's zero
+// blocks), zeros = its inclusive prefix + 512 (n - 1 - t), is never compacted
+// into: the tiles' zero runs tile [nnz, 512 n) in reverse order, and the
+// payload is written once.
+template <bool ALIGNED>
+__global__ void __launch_bounds__(K5_THREADS, 16)
+shuffle_encode_tiles(const uint16_t* __restrict__ codes, uint32_t* __restrict__ bitflags,
+                     uint16_t* __restrict__ payload, long long capacity,
+                     int* __restrict__ nnz, unsigned long long* st, unsigned* ticket,
+                     int n_tiles) {
+  __shared__ __align__(16) uint16_t sh[TILE];        // shuffled tile, plane-major
+  __shared__ uint32_t fws[FLAG_WORDS_PER_TILE];      // packed flags
+  __shared__ uint32_t before[FLAG_WORDS_PER_TILE];   // set flags in the words before
+  __shared__ uint8_t bits[FLAG_WORDS_PER_TILE][K5_WARPS];  // bits 8 W .. 8 W + 7 of word w
+  __shared__ unsigned s_base;
+  const int t = static_cast<int>(take_ticket(ticket));
+  const int i = threadIdx.x, warp = i >> 5, lane = i & 31;
+  const int g0 = 2 * i;                              // groups g0 and g0 + 1
+  const uint16_t* tile_codes = codes + static_cast<long long>(t) * TILE;
+
+  // codes, two to a register: 64 bytes a thread, as four 16-byte loads; codes
+  // that do not start on 16 bytes pass through the shared tile by coalesced
+  // 2-byte loads first
+  uint4 c[4];
+  if (!ALIGNED) {
+    for (int e = i; e < TILE; e += K5_THREADS) sh[e] = tile_codes[e];
+    __syncthreads();
+  }
+  const uint4* from = ALIGNED ? reinterpret_cast<const uint4*>(tile_codes) + 2 * g0
+                              : reinterpret_cast<const uint4*>(sh) + 2 * g0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) c[k] = ALIGNED ? __ldg(from + k) : from[k];
+  if (!ALIGNED) __syncthreads();                     // the tile is free for the shuffled words
+  const unsigned raw0[8] = {c[0].x, c[0].y, c[0].z, c[0].w, c[1].x, c[1].y, c[1].z, c[1].w};
+  const unsigned raw1[8] = {c[2].x, c[2].y, c[2].z, c[2].w, c[3].x, c[3].y, c[3].z, c[3].w};
+  unsigned p0[8], p1[8];                             // words 2 q, 2 q + 1 of each group
+  shuffle_pairs(raw0, p0);
+  shuffle_pairs(raw1, p1);
+
+  // zero-block flags from registers: bit w of m is block 32 w + g0 / 8, ORed
+  // over the 4 lanes (8 groups) of that block
+  unsigned m = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const unsigned v = p0[q] | p1[q];
+    m |= ((v & 0xFFFFu) != 0u ? 1u : 0u) << (2 * q) | (v > 0xFFFFu ? 2u : 0u) << (2 * q);
+  }
+  m |= __shfl_xor_sync(0xffffffffu, m, 1);
+  m |= __shfl_xor_sync(0xffffffffu, m, 2);
+  unsigned byte = 0;                     // lane w < 16: word w's 8 bits of this warp
+#pragma unroll
+  for (int k = 0; k < 8; ++k) byte |= ((__shfl_sync(0xffffffffu, m, 4 * k) >> (lane & 15)) & 1u) << k;
+  if (lane < FLAG_WORDS_PER_TILE) bits[lane][warp] = static_cast<uint8_t>(byte);
+  // word w of groups g0 and g0 + 1 side by side: one 4-byte store
+  uint32_t* sh32 = reinterpret_cast<uint32_t*>(sh);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    sh32[(2 * q * GROUPS_PER_TILE + g0) >> 1] = __byte_perm(p0[q], p1[q], 0x5410);
+    sh32[((2 * q + 1) * GROUPS_PER_TILE + g0) >> 1] = __byte_perm(p0[q], p1[q], 0x7632);
+  }
+  __syncthreads();
+
+  // warp 0: the packed flags, their prefix and the look-back
+  if (warp == 0) {
+    uint32_t fw = 0;
+    if (lane < FLAG_WORDS_PER_TILE) {
+#pragma unroll
+      for (int v = 0; v < K5_WARPS; ++v) fw |= static_cast<uint32_t>(bits[lane][v]) << (8 * v);
+    }
+    const unsigned cnt = __popc(fw);
+    unsigned incl = cnt;
+#pragma unroll
+    for (int o = 1; o < FLAG_WORDS_PER_TILE; o <<= 1) {
+      const unsigned x = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += x;
+    }
+    const unsigned agg = __shfl_sync(0xffffffffu, incl, FLAG_WORDS_PER_TILE - 1);
+    if (lane < FLAG_WORDS_PER_TILE) {
+      fws[lane] = fw;
+      before[lane] = incl - cnt;
+      bitflags[static_cast<long long>(t) * FLAG_WORDS_PER_TILE + lane] = fw;
+    }
+    unsigned excl = 0;
+    if (t == 0) {
+      if (lane == 0) publish(st, 0, ST_PREFIX, agg);
+    } else {
+      if (lane == 0) publish(st, t, ST_AGGREGATE, agg);
+      excl = lookback_exclusive(st, t, 0);
+      if (lane == 0) publish(st, t, ST_PREFIX, excl + agg);
+    }
+    if (lane == 0) {
+      s_base = excl;
+      if (t == n_tiles - 1) *nnz = static_cast<int>(excl + agg);
+    }
+  }
+  __syncthreads();
+
+  // compaction and the tile's zero run, one 16-byte store a block
+  const uint4* blocks = reinterpret_cast<const uint4*>(sh);
+  uint4* out = reinterpret_cast<uint4*>(payload);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const long long whole = static_cast<long long>(n_tiles) * BLOCKS_PER_TILE;
+  const long long base = s_base;
+  const long long zeros = base + before[FLAG_WORDS_PER_TILE - 1] +
+                          __popc(fws[FLAG_WORDS_PER_TILE - 1]) +
+                          (whole - static_cast<long long>(t + 1) * BLOCKS_PER_TILE);
+  for (int b = i; b < BLOCKS_PER_TILE; b += K5_THREADS) {
+    const uint32_t fw = fws[b >> 5];
+    const int set = static_cast<int>(before[b >> 5]) + __popc(fw & ((1u << (b & 31)) - 1u));
+    const bool on = (fw >> (b & 31)) & 1u;
+    const long long at = on ? base + set : zeros + (b - set);
+    const uint4 v = blocks[b];
+    if (at < capacity) out[at] = on ? v : zero;
+  }
+  // a capacity past 512 n: tile t zeroes its share of [512 n, capacity)
+  if (capacity > whole) {
+    const long long share = (capacity - whole + n_tiles - 1) / n_tiles;
+    const long long hi = min(capacity, whole + (t + 1) * share);
+    for (long long c = whole + t * share + i; c < hi; c += K5_THREADS) out[c] = zero;
+  }
+}
+
 }  // namespace fz
 
 extern "C" {
@@ -153,14 +335,37 @@ int fz_fused_compress(const void* x, int is_bf16, int ndim, long long d0, long l
 #undef FZ_K4
 }
 
-// K5. codes: u16[n_tiles * 4096]. Returns a cudaError_t.
+// K5. codes: u16[n_tiles * 4096]. payload: every block written (zero past
+// nnz). scratch: n_tiles look-back words, then the ticket; zeroed by the
+// caller. Returns a cudaError_t.
 int fz_fused_shuffle_encode(const uint16_t* codes, long long n_tiles, uint32_t* bitflags,
                             uint16_t* payload, long long capacity, int* nnz,
                             unsigned long long* scratch, void* stream) {
-  const int aligned = reinterpret_cast<uintptr_t>(codes) % 16 == 0;
-  return fz::launch(fz::CodesU16{codes, aligned}, fz::TILE * sizeof(uint16_t), static_cast<int>(n_tiles),
-                    bitflags, payload, capacity, nnz, scratch,
-                    static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + n_tiles);
+  const unsigned grid = static_cast<unsigned>(n_tiles);
+  const int tiles = static_cast<int>(n_tiles);
+  if (reinterpret_cast<uintptr_t>(codes) % 16 == 0)
+    fz::shuffle_encode_tiles<true><<<grid, fz::K5_THREADS, 0, s>>>(codes, bitflags, payload,
+                                                                 capacity, nnz, scratch,
+                                                                 ticket, tiles);
+  else
+    fz::shuffle_encode_tiles<false><<<grid, fz::K5_THREADS, 0, s>>>(codes, bitflags, payload,
+                                                                  capacity, nnz, scratch,
+                                                                  ticket, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many CTAs of K5 the current card runs at once: one wave of tiles, or
+// -1 on a CUDA error.
+long long fz_fused_shuffle_encode_ctas() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fz::shuffle_encode_tiles<true>,
+                                                      fz::K5_THREADS, 0);
+  return e == cudaSuccess ? static_cast<long long>(sms) * per_sm : -1;
 }
 
 }  // extern "C"

@@ -47,8 +47,8 @@
 // in blockIdx order, one 16-code group a thread transposed in registers, and
 // are bound by bytes (K2: 2n read, 2n + n/8 written; K3: 2n read, 2n
 // written).
-//   * K2: thread g loads its group's 16 codes with two 16-byte loads (K5's
-//     CodesU16), transposes them (shuffle_group) and stores its 16 words
+//   * K2: thread g loads its group's 16 codes with two 16-byte loads,
+//     transposes them (shuffle_group) and stores its 16 words
 //     plane-major into a shared tile (word w at w * 256 + g, conflict-free);
 //     then each thread writes 16-byte blocks of the tile and their byte flags.
 //   * K3: the tile's shuffled words are read into shared memory with 16-byte
@@ -301,14 +301,18 @@ lorenzo_quant_walk(const void* __restrict__ x, const float* __restrict__ eb, int
   }
 }
 
-// K2: one CTA a tile.
-__global__ void __launch_bounds__(THREADS, CodesU16::MIN_CTAS)
+// K2: one CTA a tile; at most 32 registers, 2048 threads an SM.
+__global__ void __launch_bounds__(THREADS, 8)
 bitshuffle_flag_tiles(const uint16_t* __restrict__ codes, uint16_t* __restrict__ shuffled,
                       uint8_t* __restrict__ flags) {
   __shared__ __align__(16) uint16_t sh[TILE];        // plane-major
   const int t = blockIdx.x;
+  const uint4* src = reinterpret_cast<const uint4*>(codes + t * TILE + threadIdx.x * 16);
+  const uint4 c0 = __ldg(src), c1 = __ldg(src + 1);
+  const unsigned raw[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
   unsigned a[16];
-  CodesU16{codes, 1}.codes(nullptr, t * TILE, threadIdx.x, a);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) a[e] = (raw[e >> 1] >> (16 * (e & 1))) & 0xFFFFu;
   shuffle_group(a);
 #pragma unroll
   for (int w = 0; w < 16; ++w) sh[w * GROUPS_PER_TILE + threadIdx.x] = static_cast<uint16_t>(a[w]);

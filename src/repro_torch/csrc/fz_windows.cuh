@@ -1,7 +1,6 @@
 // Lorenzo codes from pre-quantized windows in shared memory, for Hopper
 // (sm_90a): the code source of K4 fused_compress (fz_compress.cu) and of K1
-// lorenzo_quant's tile step (fz_staged.cu); and the u16 code source of K5 and
-// K2 bitshuffle_flag (CodesU16).
+// lorenzo_quant's tile step (fz_staged.cu).
 //
 // The neighbours of codes [p0, p0 + 4096) at offset o in {0, row, plane,
 // plane + row} (as many as the dims have) lie in the window [p0 - o - 1,
@@ -216,27 +215,6 @@ struct WindowCodes {
 #pragma unroll
     for (int e = 0; e < 16; ++e)
       code[e] = e < valid ? to_code(static_cast<int>(d[e]), zigzag) : 0u;
-  }
-};
-
-// The codes of K5 and K2: u16, the stream a whole number of tiles; two
-// 16-byte loads a group where the stream is 16-byte aligned, else 2-byte loads.
-struct CodesU16 {
-  static constexpr int MIN_CTAS = 8;   // at most 32 registers: 2048 threads an SM
-  const uint16_t* codes_in;
-  int aligned;
-  __device__ __forceinline__ void codes(unsigned*, int p0, int g, unsigned code[16]) const {
-    const uint16_t* src = codes_in + p0 + g * 16;
-    if (aligned) {
-      const uint4 a = __ldg(reinterpret_cast<const uint4*>(src));
-      const uint4 b = __ldg(reinterpret_cast<const uint4*>(src) + 1);
-      const unsigned raw[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int e = 0; e < 16; ++e) code[e] = (raw[e >> 1] >> (16 * (e & 1))) & 0xFFFFu;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 16; ++e) code[e] = src[e];
-    }
   }
 };
 

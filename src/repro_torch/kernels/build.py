@@ -33,6 +33,7 @@ SIGNATURES = {
     "fz_compress.cu": {
         "fz_fused_compress": [_P, _I, _I, _L, _L, _L, _P, _I, _P, _P, _L, _P, _P, _P],
         "fz_fused_shuffle_encode": [_P, _L, _P, _P, _L, _P, _P, _P],
+        "fz_fused_shuffle_encode_ctas": [],
     },
     "fz_decompress.cu": {
         "fz_fused_decompress": [_P, _P, _L, _P, _I, _I, _L, _L, _L, _P, _P, _L, _P, _P,
@@ -50,7 +51,8 @@ SIGNATURES = {
         "fz_flash_decode_scratch_floats": [_I, _I, _I, _I, _I],
     },
 }
-_RESTYPES = {"fz_decompress_scratch_words": _L, "fz_flash_decode_scratch_floats": _L}
+_RESTYPES = {"fz_decompress_scratch_words": _L, "fz_flash_decode_scratch_floats": _L,
+             "fz_fused_shuffle_encode_ctas": _L}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -3,7 +3,8 @@
 K4 replaces the Pallas TPU kernel ``repro/kernels/fused_compress.py:fused_compress``:
 float (1-3)D data -> (bitflags uint32[16 * tiles], payload uint16[capacity, 8],
 nnz int32[]) in one launch. K5 replaces ``:fused_shuffle_encode``: the same
-from u16 codes, the strict-mode route.
+from u16 codes, the strict-mode route. K4's payload is zeroed here before
+the launch; K5 writes all of its payload itself (zero past ``nnz``).
 
 For a CPU tensor a wrapper runs its plain version (``kernels/ref.py``); for a
 CUDA tensor it launches the kernel on the current stream or raises. Each
@@ -34,11 +35,12 @@ def _check_eb(eb: torch.Tensor, device: torch.device) -> None:
                          f"{eb.dtype} {tuple(eb.shape)} on {eb.device}")
 
 
-def _outputs(n_tiles: int, capacity: int, device: torch.device):
+def _outputs(n_tiles: int, capacity: int, device: torch.device, *, zero_payload: bool):
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
     bitflags = torch.empty(n_tiles * FLAG_WORDS_PER_TILE, dtype=torch.uint32, device=device)
-    payload = torch.zeros(capacity, 8, dtype=torch.uint16, device=device)
+    alloc = torch.zeros if zero_payload else torch.empty
+    payload = alloc(capacity, 8, dtype=torch.uint16, device=device)
     nnz = torch.empty((), dtype=torch.int32, device=device)
     scratch = torch.zeros(n_tiles + 1, dtype=torch.int64, device=device)  # look-back + ticket
     return bitflags, payload, nnz, scratch
@@ -66,7 +68,8 @@ def fused_compress(data: torch.Tensor, eb: torch.Tensor, *, capacity: int,
     _check_eb(eb, data.device)
     dims = list(data.shape) + [1] * (3 - data.ndim)
     n_tiles = -(-n // TILE)
-    bitflags, payload, nnz, scratch = _outputs(n_tiles, capacity, data.device)
+    bitflags, payload, nnz, scratch = _outputs(n_tiles, capacity, data.device,
+                                                zero_payload=True)
     lib = build.library(_SOURCE)
     rc = lib.fz_fused_compress(
         data.data_ptr(), int(data.dtype == torch.bfloat16), data.ndim, *dims,
@@ -98,7 +101,8 @@ def fused_shuffle_encode(codes_flat: torch.Tensor, *, capacity: int):
     if n == 0 or n % TILE or n > MAX_N + TILE:
         raise ValueError(f"size {n} is not a positive multiple of TILE={TILE} below 2**31")
     n_tiles = n // TILE
-    bitflags, payload, nnz, scratch = _outputs(n_tiles, capacity, codes_flat.device)
+    bitflags, payload, nnz, scratch = _outputs(n_tiles, capacity, codes_flat.device,
+                                                zero_payload=False)
     lib = build.library(_SOURCE)
     rc = lib.fz_fused_shuffle_encode(
         codes_flat.data_ptr(), n_tiles, bitflags.data_ptr(), payload.data_ptr(), capacity,
@@ -110,3 +114,11 @@ def fused_shuffle_encode(codes_flat: torch.Tensor, *, capacity: int):
 
 
 fused_shuffle_encode.launches = 0
+
+
+def shuffle_encode_ctas() -> int:
+    """How many CTAs of K5 the current card runs at once: one wave of tiles."""
+    ctas = build.library(_SOURCE).fz_fused_shuffle_encode_ctas()
+    if ctas < 1:
+        raise RuntimeError("fz_fused_shuffle_encode_ctas: CUDA error")
+    return ctas

@@ -19,6 +19,7 @@ from repro_torch.core import shuffle
 from repro_torch.data.fields import make_field
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
+from repro_torch.kernels.fused_compress import shuffle_encode_ctas
 
 pytestmark = pytest.mark.cuda
 
@@ -104,6 +105,66 @@ def test_fused_shuffle_encode_matches_plain(cuda, shape, capacity_frac):
     want = ref.fused_shuffle_encode_ref(flat, capacity=cap)
     for g, w in zip(got, want):
         assert _equal(g, w)
+
+
+# K5 at tile counts below, at and past one wave of its CTAs ("wave": how many
+# the card runs at once)
+K5_TILES = ["1", "2", "5", "wave - 1", "wave", "wave + 1", "3 * wave + 7"]
+
+
+def _k5_codes(n_tiles, seed):
+    """Small codes (most high bit planes zero, so many zero blocks) with a
+    zero stretch in every third tile from the second."""
+    rng = np.random.default_rng(seed)
+    codes = rng.geometric(0.15, size=n_tiles * shuffle.TILE) - 1
+    codes.reshape(n_tiles, -1)[1::3, 1000:3000] = 0
+    return torch.from_numpy(codes.astype(np.int32)).to(torch.uint16)
+
+
+@pytest.mark.parametrize("tiles", K5_TILES)
+@pytest.mark.parametrize("capacity_frac", [1.0, 0.25])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_fused_shuffle_encode_waves_match_plain(cuda, tiles, capacity_frac, offset):
+    """K5 at tile counts around one wave, capacity 1.0 and 0.25, codes at their
+    own allocation and 3 elements off 16 bytes (2-byte loads). The payload is
+    allocated right after a same-sized block filled with 0xFFFF is freed, so a
+    tail that the kernel left unzeroed would show."""
+    n_tiles = eval(tiles, {"wave": shuffle_encode_ctas()})
+    codes = _k5_codes(n_tiles, seed=n_tiles).to(cuda)
+    flat = torch.empty(codes.numel() + offset, dtype=torch.uint16, device=cuda)[offset:]
+    flat.copy_(codes)
+    cap = FZConfig(capacity_frac=capacity_frac).payload_capacity(codes.numel())
+    torch.full((cap, 8), -1, dtype=torch.int16, device=cuda)
+    got = kernels.fused_shuffle_encode(flat, capacity=cap)
+    want = ref.fused_shuffle_encode_ref(codes, capacity=cap)
+    for g, w in zip(got, want):
+        assert _equal(g, w)
+
+
+@pytest.mark.parametrize("tiles", ["1", "5", "wave + 1"])
+@pytest.mark.parametrize("capacity_frac", [1.0, 0.25])
+def test_fused_shuffle_encode_writes_its_whole_payload(cuda, tiles, capacity_frac):
+    """K5's entry point on a payload filled with 0xFFFF: every block is
+    written, the compacted ones and zeros past nnz (none where the capacity
+    is short of nnz)."""
+    from repro_torch.kernels import build
+    n_tiles = eval(tiles, {"wave": shuffle_encode_ctas()})
+    codes = _k5_codes(n_tiles, seed=7).to(cuda)
+    cap = FZConfig(capacity_frac=capacity_frac).payload_capacity(codes.numel())
+    bitflags = torch.empty(n_tiles * 16, dtype=torch.uint32, device=cuda)
+    payload = torch.full((cap, 8), -1, dtype=torch.int16, device=cuda).view(torch.uint16)
+    nnz = torch.empty((), dtype=torch.int32, device=cuda)
+    scratch = torch.zeros(n_tiles + 1, dtype=torch.int64, device=cuda)
+    lib = build.library("fz_compress.cu")
+    rc = lib.fz_fused_shuffle_encode(codes.data_ptr(), n_tiles, bitflags.data_ptr(),
+                                     payload.data_ptr(), cap, nnz.data_ptr(),
+                                     scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    want = ref.fused_shuffle_encode_ref(codes, capacity=cap)
+    for g, w in zip((bitflags, payload, nnz), want):
+        assert _equal(g, w)
+    if capacity_frac == 0.25:
+        assert int(nnz) > cap          # the short capacity: an empty tail, the true nnz
 
 
 @pytest.mark.parametrize("shape", SHAPES)
