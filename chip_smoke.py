@@ -94,7 +94,33 @@ Phases (each prints its own lines):
      cuSZx-like baseline and the cuZFP-like one at the rate whose PSNR is
      closest to FZ's (torch-op proxies on the card: round-trip GB/s, CR,
      PSNR), and FZ over cuZFP-like in round-trip speed and CR. Raises on a
-     broken error bound.
+     broken error bound;
+  12. telemetry (``repro_torch.obs``) on the serving path: phase 8's trace on
+     the kernel route against a fresh registry and event ring. The pool's
+     sampled sentinel checks ran (``sentinel_eb_checks{tier=kv_cold}`` and
+     ``sentinel_ratio_samples`` >= 1) with no violation, the scheduler's
+     per-step ``assert_healthy()`` held on every step and wrote its gauges;
+     ``PoolStats`` and ``TraceStats`` equal their registry metrics field for
+     field; ``fz_dispatches`` equals the pool's dispatch counts; every
+     ``sched_*`` / ``kvpool_*`` counter equals the plain route's (phase 8's
+     plain run, registry reset before it), the fz path labels differ
+     (``fused`` / ``reference``); spans nest ``engine.serve > sched.step >
+     kvpool.{gather,park,cold_read} > fz.* > fz.stage.*`` (stages labeled
+     ``cuda``). The per-span host-time table (calls, p50, p99, total), the
+     tokens/s with ``obs`` on and under ``obs.disabled()`` (not gated), the
+     device idle share of a third run under ``torch.profiler``. The launcher
+     (``python -m repro_torch.launch.serve --arch yi-6b --smoke --paged``,
+     prompts of 32, 8 tokens, so the profiler trace stays small) in a
+     subprocess with ``--trace-out``, ``--metrics-out`` and ``--profile-dir``
+     into ``chiprun_out/telemetry/``: the Chrome trace holds ``engine.serve``
+     and ``sched.step``, the metrics no sentinel violation, the profiler trace
+     every K7 kernel inside an ``engine.decode_step_paged`` range. The cost of
+     ``obs``: one span alone, on and off; a fused paper-mode compress +
+     decompress round trip at (100,
+     500, 500) f32, rel eb 1e-3, interleaved with telemetry on and under
+     ``obs.disabled()``, medians of 1000 each; raises at 5% or more. A span
+     inside a CUDA graph capture records only ``span_traces`` and one
+     ``jit-trace`` event, and the replayed graph gives the eager result.
 
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
@@ -108,6 +134,7 @@ card, or a directory without the rest of the repository.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -186,6 +213,12 @@ SCHED_FIELDS = ("decode_steps", "admissions", "preemptions", "resumes", "complet
                 "prefill_tokens", "prefill_tokens_saved", "cow_promotions",
                 "shared_cold_reads_deduped", "decompress_dispatches", "ttft_steps",
                 "itl_steps")
+OBS_OVERHEAD_LIMIT = 0.05  # the reference's bench tier pins obs under 5% of a round trip
+# interleaved round trips with telemetry on and off, each: the host of the
+# card's machine has slow phases that move a median of 60 by several percent;
+# 1000 pairs (about 1.3 s) span them
+OBS_ROUND_TRIPS = 1000
+TELEMETRY_DIR = ROOT / "chiprun_out" / "telemetry"    # listed in .gitignore
 FIXTURES = ("tests/data/container_v1_plain.bin", "tests/data/container_v1_entropy.bin",
             "tests/data/legacy_stream.bin")
 
@@ -252,14 +285,15 @@ def outlier_slots(n, kind, seed, dev):
 
 
 def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
-                   cold_ms) -> tuple[dict, dict, dict]:
+                   cold_ms) -> tuple[dict, dict, dict, dict]:
     """Phases 7-10: K7 against its plain version, the Yi-6B serving trace on both
-    routes, the whole-cache path and the serving times. Returns K7's row and K6's
-    and K4's numbers at the serving page."""
+    routes, the whole-cache path and the serving times. Returns K7's row, K6's
+    and K4's numbers at the serving page, and what phase 12 serves with (the
+    model, its weights, the trace and the plain route's registry snapshot)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch import configs, kernels
+    from repro_torch import configs, kernels, obs
     from repro_torch.core import fz
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
@@ -322,11 +356,12 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
     say(8, "trace: " + ", ".join(f"req {r.req_id}: prompt {len(r.tokens)} new {r.n_new} "
                                  f"prio {r.priority} at {r.arrive_at}" for r in reqs))
 
-    def serve(use_kernels, parked=None, teacher=None, paged=None):
+    def serve(use_kernels, parked=None, teacher=None, paged=None, record=None):
         """The trace through ``Engine.serve`` on one route. ``parked`` collects each
         parked page's raw data; ``teacher`` collects, at each step of the plain
         contiguous decode, the kernel route's decode on the same cache and tokens;
-        ``paged`` overrides the decode wiring (the plain paged partials)."""
+        ``paged`` overrides the decode wiring (the plain paged partials);
+        ``record`` gets the registry snapshot of the run (reset before it)."""
         eng = Engine(model, params, pool=PoolConfig(**SERVE_POOL, use_kernels=use_kernels),
                      device=dev)
         pool = eng.make_pool()
@@ -357,6 +392,9 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
                                 (top2[:, 0] - top2[:, 1])[differ].tolist()))
                 return logits, new_cache
             eng.decode_step = decode_step
+        if record is not None:
+            obs.reset()
+            obs.clear_events()
         torch.cuda.synchronize()
         t = time.perf_counter()
         if paged is None:
@@ -367,6 +405,8 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
             batcher.paged_decode = paged
             out, stats = batcher.run(tracegen.generate(trace_cfg))
         torch.cuda.synchronize()
+        if record is not None:
+            record["snapshot"] = obs.snapshot()
         return out, stats, pool, time.perf_counter() - t
 
     parked = []
@@ -405,7 +445,8 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
            f"worst max_err/eb {worst:.6f})")
     del parked
 
-    out_p, st_p, _, wall_p = serve(False)
+    plain_obs = {}
+    out_p, st_p, _, wall_p = serve(False, record=plain_obs)
     for f in SCHED_FIELDS:
         if getattr(st_p, f) != getattr(st_k, f):
             raise AssertionError(f"TraceStats.{f} differs: kernel {getattr(st_k, f)} vs plain "
@@ -649,7 +690,9 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
             f"{100 * bound4 / cold4:.1f}% cold; bit-identical to its plain version")
     k4_page = {"shape": [n4], "ms": ms4, "ms_l2_cold": cold4, "plain_ms": plain_ms4,
                "bound_ms": bound4, "bound_by": by4}
-    return k7_row, k6_page, k4_page
+    serving = {"model": model, "params": params, "trace_cfg": trace_cfg,
+               "plain_snapshot": plain_obs["snapshot"], "plain_stats": st_p}
+    return k7_row, k6_page, k4_page, serving
 
 
 def paper_comparison(card, dev, fields, cuda_ms, device_ms) -> None:
@@ -728,6 +771,268 @@ def paper_comparison(card, dev, fields, cuda_ms, device_ms) -> None:
                         f"{m} {z_ms / fz[m]['rt_ms']:.2f}x" for m in fz) + ", CR " + ", ".join(
                         f"{m} {fz[m]['cr'] / (raw / bz):.2f}x" for m in fz))
     say(11, f"paper comparison done in {time.time() - t_phase:.1f} s")
+
+
+def _strip_instance(key: str) -> str:
+    """``name{a=1,pool=pool3}`` -> ``name{a=1}``: the per-instance labels go."""
+    name, _, labels = key.partition("{")
+    kept = [kv for kv in labels.rstrip("}").split(",") if kv and
+            not kv.startswith(("pool=", "batcher="))]
+    return name + ("{" + ",".join(kept) + "}" if kept else "")
+
+
+def k7_inside_ranges(doc: dict, range_name: str) -> tuple[int, int]:
+    """(K7 kernel events, how many of them lie inside a ``range_name`` range) in
+    a torch.profiler Chrome trace: the kernel's launch (matched by correlation
+    id) inside the CPU range, or the kernel inside the range's GPU projection."""
+    evs = doc["traceEvents"]
+    kernels = [e for e in evs if e.get("cat") == "kernel" and "flash_decode" in e["name"]]
+    launches = {e["args"]["correlation"]: e for e in evs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    cpu = [e for e in evs if e.get("cat") == "user_annotation" and e["name"] == range_name]
+    gpu = [e for e in evs if e.get("cat") == "gpu_user_annotation" and e["name"] == range_name]
+
+    def inside(t0, t1, ranges, same=None):
+        return any(r["ts"] <= t0 and t1 <= r["ts"] + r["dur"]
+                   and (same is None or (r["pid"], r["tid"]) == same) for r in ranges)
+    n_in = 0
+    for k in kernels:
+        launch = launches.get(k.get("args", {}).get("correlation"))
+        if (launch is not None and inside(launch["ts"], launch["ts"] + launch.get("dur", 0), cpu,
+                                          (launch["pid"], launch["tid"]))) \
+                or inside(k["ts"], k["ts"] + k["dur"], gpu):
+            n_in += 1
+    return len(kernels), n_in
+
+
+def telemetry_phase(card, dev, serving, x) -> None:
+    """Phase 12: ``repro_torch.obs`` on the serving path (phase 8's model and
+    trace), the launcher's telemetry files, the cost of ``obs`` on a compressor
+    round trip, and a span inside a CUDA graph capture. Raises on any failed
+    check."""
+    import contextlib
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch as rt
+    from repro_torch import obs
+    from repro_torch.obs import cli as obs_cli
+    from repro_torch.obs import spans
+    from repro_torch.serve import Engine, PoolConfig
+    from repro_torch.serve.kvpool import tracegen
+    from repro_torch.serve.kvpool.pool import _POOL_METRICS
+    from repro_torch.serve.kvpool.scheduler import _SCHED_METRICS
+
+    t_phase = time.time()
+    model, params, trace_cfg = serving["model"], serving["params"], serving["trace_cfg"]
+
+    def serve_run():
+        """The trace on the kernel route against a fresh registry and ring."""
+        eng = Engine(model, params, pool=PoolConfig(**SERVE_POOL), device=dev)
+        obs.reset()
+        obs.clear_events()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, stats, pool = eng.serve(tracegen.generate(trace_cfg), max_batch=SERVE_LANES)
+        torch.cuda.synchronize()
+        return out, stats, pool, time.perf_counter() - t
+
+    # -- the kernel route with telemetry on -----------------------------------
+    out, st, pool, wall_on = serve_run()
+    snap, events, violations, ps = obs.snapshot(), spans.events(), obs.violations(), pool.stats
+    report = obs.step_report(meta={"card": card, "trace": "yi-6b, 8 requests"})
+    counters, gauges = snap["counters"], snap["gauges"]
+    n_tok = sum(len(v) for v in out.values())
+    steps = counters.get("span_calls{span=sched.step}", 0)
+    if len(events) >= spans.ring_capacity():
+        raise AssertionError(f"the event ring overflowed ({len(events)} events)")
+    checks = counters.get("sentinel_eb_checks{tier=kv_cold}", 0)
+    samples = counters.get("sentinel_ratio_samples{tier=kv_cold}", 0)
+    if checks < 1 or samples < 1 or violations:
+        raise AssertionError(f"sentinels: {checks} kv_cold checks, {samples} ratio samples, "
+                             f"violations {violations}")
+    if "sched_running{subsystem=kvpool}" not in gauges or steps < st.decode_steps:
+        raise AssertionError(f"the scheduler's health gate did not run every step ({steps} "
+                             f"steps, {st.decode_steps} decode steps)")
+    say(12, f"sentinels: {checks} sampled kv_cold checks of "
+            f"{counters.get('sentinel_eb_considered{tier=kv_cold}', 0)} parks, worst last "
+            f"max_err {gauges.get('sentinel_eb_last_max_err{tier=kv_cold}', 0.0):.4g}, "
+            f"{samples} ratio samples (EWMA "
+            f"{gauges.get('sentinel_ratio_ewma{tier=kv_cold}', 0.0):.3f}), violations "
+            f"{violations}; assert_healthy() held at each of {steps} scheduler steps")
+    for field, (kind, name) in _POOL_METRICS.items():
+        got = (counters if kind == "counter" else gauges).get(f"{name}{{pool={pool._obs_id}}}", 0)
+        if getattr(ps, field) != int(got):
+            raise AssertionError(f"PoolStats.{field} {getattr(ps, field)} != registry {got}")
+    for field, name in _SCHED_METRICS.items():
+        got = [v for k, v in counters.items() if k.startswith(f"{name}{{batcher=")]
+        if len(got) > 1 or getattr(st, field) != (got[0] if got else 0):
+            raise AssertionError(f"TraceStats.{field} {getattr(st, field)} != registry {got}")
+    fz_ops = {op: {k: v for k, v in counters.items() if k.startswith(f"fz_dispatches{{op={op},")}
+              for op in ("compress", "decompress")}
+    if (sum(fz_ops["compress"].values()) != ps.compress_dispatches
+            or sum(fz_ops["decompress"].values()) != ps.decompress_dispatches):
+        raise AssertionError(f"fz dispatches {fz_ops} != the pool's {ps.compress_dispatches} / "
+                             f"{ps.decompress_dispatches}")
+    if st != serving["plain_stats"]:
+        raise AssertionError("the kernel route's TraceStats differ from phase 8's plain run")
+    plain = serving["plain_snapshot"]["counters"]
+    ours = {_strip_instance(k): v for k, v in counters.items() if k.startswith(("sched_", "kvpool_"))}
+    theirs = {_strip_instance(k): v for k, v in plain.items() if k.startswith(("sched_", "kvpool_"))}
+    if ours != theirs:
+        raise AssertionError(f"sched_/kvpool_ counters differ: kernel {ours} vs plain {theirs}")
+    plain_fz = {k: v for k, v in plain.items() if k.startswith("fz_dispatches")}
+    if (not all("path=fused" in k for op in fz_ops.values() for k in op)
+            or not all("path=reference" in k for k in plain_fz)
+            or {k.replace("path=fused", "path=reference"): v for op in fz_ops.values()
+                for k, v in op.items()} != plain_fz):
+        raise AssertionError(f"fz_dispatches: kernel {fz_ops} vs plain {plain_fz}")
+    say(12, f"PoolStats and TraceStats equal the registry; fz_dispatches {fz_ops} equal the "
+            f"pool's ({ps.compress_dispatches} / {ps.decompress_dispatches}); {len(ours)} "
+            f"sched_/kvpool_ counters equal the plain route's, fz path labels fused / reference")
+
+    parents = {}
+    for ev in events:
+        parents.setdefault(ev["name"], set()).add(ev["parent"])
+    pool_spans = {"kvpool.gather", "kvpool.park", "kvpool.cold_read"}
+    fz_spans = {n for n in parents if n.startswith("fz.") and not n.startswith("fz.stage")}
+    stages = [e for e in events if e["name"].startswith("fz.stage")]
+    stage_parents = {e["parent"] for e in stages}
+    if (parents.get("sched.step") != {"engine.serve"} or not pool_spans <= set(parents)
+            or not all(parents[n] <= {"sched.step", "kvpool.gather"} for n in pool_spans)
+            or not set().union(*(parents[n] for n in fz_spans)) <= pool_spans
+            or not stage_parents & fz_spans or not stage_parents <= fz_spans | {"kvpool.park"}
+            or not all(e["args"].get("backend") == "cuda" and e["cat"] == "span"
+                       for e in stages)):
+        raise AssertionError(f"span nesting: {parents}")
+    say(12, f"span nesting engine.serve > sched.step > kvpool.{{gather,park,cold_read}} > "
+            f"{sorted(fz_spans)} > {sorted({e['name'] for e in stages})} (backend cuda), "
+            f"{len(events)} events")
+    say(12, f"{card} | per-span host time of the kernel-route trace ({n_tok} tokens, "
+            f"{st.decode_steps} decode steps, {wall_on:.2f} s, obs on):")
+    for line in report.render().splitlines():
+        say(12, "  " + line)
+
+    # -- tokens/s with obs off, then the device idle share under the profiler --
+    with obs.disabled():
+        out_off, _, _, wall_off = serve_run()
+    agree = sum(int((out_off[i] == out[i]).all()) for i in out)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall_prof = serve_run()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    say(12, f"{card} | serving trace, kernel route: {n_tok / wall_on:.1f} tokens/s with obs on "
+            f"({wall_on:.3f} s), {n_tok / wall_off:.1f} tokens/s under obs.disabled() "
+            f"({wall_off:.3f} s), not gated (one run each: the host's spread is larger); "
+            f"{agree} of {len(out)} requests token-identical. Under torch.profiler (CUDA): "
+            f"{wall_prof:.3f} s, {busy_ms:.1f} ms of device time, idle share "
+            f"{1 - busy_ms / (wall_prof * 1e3):.3f}")
+
+    # -- the launcher's telemetry files ----------------------------------------
+    TELEMETRY_DIR.mkdir(parents=True, exist_ok=True)
+    trace_path, metrics_path = TELEMETRY_DIR / "serve_trace.json", TELEMETRY_DIR / "metrics.json"
+    prof_dir = TELEMETRY_DIR / "profile"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "yi-6b", "--smoke",
+           "--paged", "--prompt-len", "32", "--tokens", "8", "--trace-out", str(trace_path), "--metrics-out", str(metrics_path),
+           "--profile-dir", str(prof_dir)]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode != 0:
+        raise AssertionError(f"the launcher failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    names = {e["name"] for e in json.loads(trace_path.read_text())["traceEvents"]
+             if e["ph"] == "X"}
+    metrics = json.loads(metrics_path.read_text())
+    doc = json.loads((prof_dir / obs_cli.PROFILE_FILE).read_text())
+    n_k7, n_in = k7_inside_ranges(doc, "engine.decode_step_paged")
+    if not {"engine.serve", "sched.step"} <= names:
+        raise AssertionError(f"the launcher's Chrome trace lacks engine.serve / sched.step: {names}")
+    if metrics.get("sentinel_violations") != {}:
+        raise AssertionError(f"the launcher's metrics: {metrics.get('sentinel_violations')}")
+    if n_k7 == 0 or n_in != n_k7:
+        raise AssertionError(f"{n_in} of {n_k7} K7 kernel events inside engine.decode_step_paged")
+    say(12, f"launcher --trace-out / --metrics-out / --profile-dir in {time.time() - t0:.1f} s: "
+            f"{len(names)} span names, sentinel_violations {{}}, "
+            f"{metrics['counters'].get('sentinel_eb_checks{tier=kv_cold}', 0)} kv_cold checks; "
+            f"{n_in} of {n_k7} K7 kernel events inside engine.decode_step_paged "
+            f"({(prof_dir / obs_cli.PROFILE_FILE).stat().st_size / 1e6:.1f} MB trace)")
+
+    # -- the cost of obs on a compressor round trip ----------------------------
+    def per_call_us(fn, n=20000):
+        fn()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e6
+
+    def one_span():
+        with obs.span("chip_smoke.span", n=1, path="fused"):
+            pass
+    span_on = per_call_us(one_span)
+    with obs.disabled():
+        span_off = per_call_us(one_span)
+    say(12, f"{card} | one span alone: {span_on:.3f} us with obs on (its queued bookkeeping "
+            f"included), {span_off:.3f} us under obs.disabled(); spans.trace_time() "
+            f"{per_call_us(spans.trace_time):.3f} us")
+    obs.reset()
+    obs.clear_events()
+    cfg = rt.FZConfig(eb=1e-3, exact_outliers=False)
+
+    def round_trip(enabled):
+        with contextlib.nullcontext() if enabled else obs.disabled():
+            t = time.perf_counter()
+            rt.decompress(rt.compress(x, cfg), cfg)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+    for _ in range(5):
+        round_trip(True)
+        round_trip(False)
+    on, off = [], []
+    for i in range(OBS_ROUND_TRIPS):
+        for enabled in ((True, False) if i % 2 == 0 else (False, True)):
+            (on if enabled else off).append(round_trip(enabled))
+    med_on, med_off = statistics.median(on), statistics.median(off)
+    frac = med_on / med_off - 1
+    say(12, f"{card} | obs overhead on a fused paper-mode compress + decompress round trip "
+            f"{tuple(x.shape)} f32 rel eb 1e-3 ({OBS_ROUND_TRIPS} interleaved each): median "
+            f"{med_on * 1e3:.4f} ms on, {med_off * 1e3:.4f} ms off, overhead {100 * frac:.2f}% "
+            f"(limit {100 * OBS_OVERHEAD_LIMIT:.0f}%); means {statistics.mean(on) * 1e3:.4f} / "
+            f"{statistics.mean(off) * 1e3:.4f} ms (the queued bookkeeping lands in a few "
+            f"calls); quartiles on "
+            f"{[round(q * 1e3, 4) for q in statistics.quantiles(on, n=4)]}, off "
+            f"{[round(q * 1e3, 4) for q in statistics.quantiles(off, n=4)]} ms")
+    if frac >= OBS_OVERHEAD_LIMIT:
+        raise AssertionError(f"obs costs {100 * frac:.2f}% of a round trip (limit "
+                             f"{100 * OBS_OVERHEAD_LIMIT:.0f}%)")
+
+    # -- a span inside a CUDA graph capture ------------------------------------
+    obs.reset()
+    obs.clear_events()
+    a = torch.arange(1 << 20, dtype=torch.float32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):             # warm up off the capture
+        b = a * 2 + 1
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        with obs.span("graph.body"):
+            b = a * 2 + 1
+    a.mul_(3)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    evs = [e for e in spans.events() if e["name"] == "graph.body"]
+    if (not torch.equal(b, a * 2 + 1) or len(evs) != 1 or evs[0]["cat"] != "jit-trace"
+            or obs.counter("span_traces", span="graph.body").value != 1
+            or obs.counter("span_calls", span="graph.body").value != 0):
+        raise AssertionError(f"a span in a CUDA graph capture: events {evs}, snapshot "
+                             f"{obs.snapshot()['counters']}")
+    say(12, "a span inside a CUDA graph capture recorded span_traces 1, one jit-trace event and "
+            "no runtime timing; two replays equal the eager result")
+    obs.reset()
+    obs.clear_events()
+    say(12, f"telemetry phase done in {time.time() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1275,9 +1580,11 @@ def main() -> int:
                    f"{raw / c_ms / 1e6:.1f} GB/s{card_c}, decompress {d_ms:.3f} ms = "
                    f"{raw / d_ms / 1e6:.1f} GB/s{card_d}, CR {c.compression_ratio():.3f}")
 
-    k7_row, k6_page, k4_page = serving_phases(card, dev, drive, path_launches, max_err,
-                                              cuda_ms, device_ms, cold_ms)
+    k7_row, k6_page, k4_page, serving = serving_phases(card, dev, drive, path_launches,
+                                                       max_err, cuda_ms, device_ms, cold_ms)
     paper_comparison(card, dev, fields, cuda_ms, device_ms)
+    telemetry_phase(card, dev, serving, fields["Hurricane-like smooth"])
+    del serving
     pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
     for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10
         row["max_abs_err"] = max_err[row["name"]]

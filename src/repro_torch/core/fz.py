@@ -24,18 +24,38 @@ For CPU tensors the kernel wrappers run their plain versions. This differs
 from the reference on purpose: there ``use_kernels`` defaults to False. The
 entry points run on the CUDA card unless ``device="cpu"`` is given, and raise
 when no card is available.
+
+Telemetry (:mod:`repro_torch.obs`), as the reference wires it: each public
+entry point opens an ``fz.<op>`` span (``n=``/``rows=`` and ``path=`` the
+route: ``reference|staged|fused``) and counts one ``fz_dispatches{op,path}``
+a call, with the container's ``fz_raw_bytes`` / ``fz_wire_bytes`` taken from
+shapes (no device read). The batch forms are one dispatch for all their
+rows, which is what lets the pool's ``*_dispatches`` and the fz counters
+agree. While a CUDA graph is captured the entry points count nothing (a
+capture is not a dispatch); deliberate difference: their span still opens
+and records a trace-time event, where the reference opens none at trace
+time (it saves a capture query a call). The entry point's span takes its
+stage spans' trace-time decision and carries the dispatch accounting, so a
+call queues one record (the paths are host-bound on the card).
+``decompress_unmetered`` is ``decompress``
+without span or counter, for the error-bound sentinels, whose sampled checks
+must not perturb the dispatch accounting they audit. ``to_bytes`` /
+``from_bytes`` count ``entropy_stage{op,selected,tier}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import struct
 from typing import Any
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..kernels import ops
+from ..obs import spans
 from . import encode as enc
 from . import entropy as ent
 from . import quant, shuffle
@@ -94,10 +114,7 @@ class FZCompressed:
 
     @property
     def n(self) -> int:
-        out = 1
-        for s in self.shape:
-            out *= s
-        return out
+        return math.prod(self.shape)
 
     def to(self, device: torch.device) -> "FZCompressed":
         return dataclasses.replace(
@@ -115,8 +132,9 @@ class FZCompressed:
 
     def wire_bytes(self) -> int:
         """Bytes moved if this container crosses a link (capacity-sized)."""
-        return sum(getattr(self, f).numel() * getattr(self, f).element_size()
-                   for f in self.FIELDS)
+        return (self.bitflags.nbytes + self.payload.nbytes + self.nnz_blocks.nbytes
+                + self.outlier_idx.nbytes + self.outlier_val.nbytes + self.n_outliers.nbytes
+                + self.eb_abs.nbytes)
 
 
 def _dtype_name(data: torch.Tensor) -> str:
@@ -164,8 +182,20 @@ def _fused(cfg: FZConfig) -> bool:
     return cfg.use_kernels and cfg.kernel_mode != "staged"
 
 
-def _plain_shuffle_encode(codes_flat, *, capacity):
-    return enc.encode(shuffle.bitshuffle(codes_flat), capacity=capacity)
+def _ref_quant(data, eb, *, code_mode, outlier_capacity):
+    with spans.leaf("fz.stage.quantize", backend="reference"):
+        return quant.dual_quantize(data, eb, code_mode=code_mode,
+                                   outlier_capacity=outlier_capacity)
+
+
+def _ref_shuffle_encode(codes_flat, *, capacity):
+    with spans.leaf("fz.stage.shuffle_encode", backend="reference"):
+        return enc.encode(shuffle.bitshuffle(codes_flat), capacity=capacity)
+
+
+def _ref_unshuffle(words_flat):
+    with spans.leaf("fz.stage.unshuffle", backend="reference"):
+        return shuffle.bitunshuffle(words_flat)
 
 
 def _stages(cfg: FZConfig):
@@ -176,21 +206,64 @@ def _stages(cfg: FZConfig):
     """
     if cfg.use_kernels:
         return ops.lorenzo_quantize, ops.bitshuffle_flag_encode, ops.bitunshuffle
-    return quant.dual_quantize, _plain_shuffle_encode, shuffle.bitunshuffle
+    return _ref_quant, _ref_shuffle_encode, _ref_unshuffle
+
+
+def _path(cfg: FZConfig) -> str:
+    """Route label for metrics and spans."""
+    if _fused(cfg):
+        return "fused"
+    return "staged" if cfg.use_kernels else "reference"
+
+
+def _metered(s: obs.span) -> obs.span:
+    """The entry point's span collects its stage spans (``fz.stage.*``, leaf
+    spans with its trace-time decision: nothing between can start a capture)."""
+    s.leaves = []
+    return s
+
+
+def _count_dispatch(s: obs.span, op: str, out: FZCompressed | None = None,
+                    wire_only: bool = False) -> None:
+    """One public call = one dispatch, counted on the route of the entry point's
+    span ``s`` (its ``path`` attribute) if the span ran (a capture is not a
+    dispatch); the byte histograms come from shapes. ``wire_only``: the batch
+    form records only the wire bytes."""
+    if obs.registry._enabled:
+        raw = None if out is None or wire_only else out.raw_bytes()
+        wire = None if out is None else out.wire_bytes()
+        s.then = (_apply_dispatch, op, s.attrs["path"], raw, wire)
+
+
+def _apply_dispatch(op: str, path: str, raw: int | None, wire: int | None) -> None:
+    obs.registry.add_now("fz_dispatches", {"op": op, "path": path})
+    if raw is not None:
+        obs.registry.observe_now("fz_raw_bytes", {"op": op}, raw)
+    if wire is not None:
+        obs.registry.observe_now("fz_wire_bytes", {"op": op}, wire)
+
+
+def _eb_tensor(eb_abs, device: torch.device) -> torch.Tensor:
+    return torch.clamp(torch.as_tensor(eb_abs, dtype=torch.float32).to(device).reshape(()),
+                       min=1e-30)
 
 
 def compress(data, cfg: FZConfig, *, device="cuda") -> FZCompressed:
     """Error-bounded lossy compression of a 1-3D float array."""
     x, dtype_name = _as_input(data, resolve_device(device))
-    return _compress_core(x, resolve_eb(x, cfg), cfg, dtype_name)
+    with _metered(obs.span("fz.compress", n=x.numel(), path=_path(cfg))) as s:
+        out = _compress_core(x, resolve_eb(x, cfg), cfg, dtype_name)
+        _count_dispatch(s, "compress", out)
+    return out
 
 
 def compress_with_eb(data, eb_abs, cfg: FZConfig, *, device="cuda") -> FZCompressed:
     """Compress against a caller-supplied absolute error bound."""
     x, dtype_name = _as_input(data, resolve_device(device))
-    eb = torch.clamp(torch.as_tensor(eb_abs, dtype=torch.float32).to(x.device).reshape(()),
-                     min=1e-30)
-    return _compress_core(x, eb, cfg, dtype_name)
+    with _metered(obs.span("fz.compress", n=x.numel(), path=_path(cfg))) as s:
+        out = _compress_core(x, _eb_tensor(eb_abs, x.device), cfg, dtype_name)
+        _count_dispatch(s, "compress", out)
+    return out
 
 
 def _compress_core(x: torch.Tensor, eb: torch.Tensor, cfg: FZConfig,
@@ -217,6 +290,19 @@ def _compress_core(x: torch.Tensor, eb: torch.Tensor, cfg: FZConfig,
 def decompress(c: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor:
     """Inverse pipeline: decode -> bit-unshuffle -> inverse Lorenzo -> dequantize."""
     c = c.to(resolve_device(device))
+    with _metered(obs.span("fz.decompress", n=c.n, path=_path(cfg))) as s:
+        out = _decompress(c, cfg)
+        _count_dispatch(s, "decompress")
+    return out
+
+
+def decompress_unmetered(c: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor:
+    """``decompress`` without span or dispatch counter, for the error-bound
+    sentinels' sampled checks (the same computation, bit-identical output)."""
+    return _decompress(c.to(resolve_device(device)), cfg)
+
+
+def _decompress(c: FZCompressed, cfg: FZConfig) -> torch.Tensor:
     oidx = c.outlier_idx if cfg.exact_outliers else None
     oval = c.outlier_val if cfg.exact_outliers else None
     if _fused(cfg):
@@ -253,9 +339,20 @@ def compress_batch_with_eb(pages_flat, eb_abs, cfg: FZConfig, *,
     if x.ndim < 2 or x.shape[0] == 0:
         raise ValueError(f"compress_batch_with_eb takes a non-empty leading batch "
                          f"dimension, got shape {tuple(x.shape)}")
-    rows = [compress_with_eb(x[i], eb_abs, cfg, device=x.device) for i in range(x.shape[0])]
-    return dataclasses.replace(
-        rows[0], **{f: torch.stack([getattr(r, f) for r in rows]) for f in FZCompressed.FIELDS})
+
+    def run():
+        eb = _eb_tensor(eb_abs, x.device)
+        rows = []
+        for i in range(x.shape[0]):
+            row, dtype_name = _as_input(x[i], x.device)
+            rows.append(_compress_core(row, eb, cfg, dtype_name))
+        return dataclasses.replace(
+            rows[0], **{f: torch.stack([getattr(r, f) for r in rows])
+                        for f in FZCompressed.FIELDS})
+    with _metered(obs.span("fz.compress_batch", rows=x.shape[0], path=_path(cfg))) as s:
+        out = run()
+        _count_dispatch(s, "compress", out, wire_only=True)
+    return out
 
 
 def decompress_batch(comp: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor:
@@ -263,11 +360,17 @@ def decompress_batch(comp: FZCompressed, cfg: FZConfig, *, device="cuda") -> tor
     comp = comp.to(resolve_device(device))
     if comp.nnz_blocks.ndim != 1:
         raise ValueError("decompress_batch takes a container stacked along a batch dimension")
-    return torch.stack([
-        decompress(dataclasses.replace(comp, **{f: getattr(comp, f)[i]
-                                                for f in FZCompressed.FIELDS}),
-                   cfg, device=comp.eb_abs.device)
-        for i in range(comp.nnz_blocks.shape[0])])
+
+    def run():
+        return torch.stack([
+            _decompress(dataclasses.replace(comp, **{f: getattr(comp, f)[i]
+                                                     for f in FZCompressed.FIELDS}), cfg)
+            for i in range(comp.nnz_blocks.shape[0])])
+    with _metered(obs.span("fz.decompress_batch", rows=comp.nnz_blocks.shape[0],
+                           path=_path(cfg))) as s:
+        out = run()
+        _count_dispatch(s, "decompress")
+    return out
 
 
 def _tree_map(fn, tree, *rest):
@@ -345,9 +448,8 @@ def to_bytes(c: FZCompressed, cfg: FZConfig, *, entropy: bool | str = "auto",
     (``entropy.plan``) and entropy-codes only when the exact predicted blob
     is at least ``ENTROPY_MIN_GAIN`` smaller; ``True``/``False`` force the
     choice. The header flags record it, so :func:`from_bytes` routes on its
-    own. ``tier`` is accepted for the reference's signature and unused: the
-    reference counts ``entropy_stage`` under it, and the port has no
-    counters yet.
+    own. ``tier`` labels the ``entropy_stage`` counters (``adhoc`` when
+    None); the ratio EWMAs are left to callers, who know their sampling.
     """
     if entropy not in (True, False, "auto"):
         raise ValueError(f"entropy must be True/False/'auto', got {entropy!r}")
@@ -367,6 +469,8 @@ def to_bytes(c: FZCompressed, cfg: FZConfig, *, entropy: bool | str = "auto",
             blob = ent.encode(payload, chunk_bytes, lengths=lengths)
             if entropy is True or len(blob) < len(payload):
                 selected, body = True, blob
+    obs.counter("entropy_stage", op="encode",
+                selected=str(selected).lower(), tier=tier or "adhoc").inc()
 
     flags = ((FLAG_ENTROPY if selected else 0)
              | (FLAG_ZIGZAG if cfg.code_mode == "zigzag" else 0)
@@ -433,8 +537,8 @@ def from_bytes(raw: bytes, *, capacity: int | None = None,
     ``outlier_capacity`` override the padded sizes; the defaults are the
     tightest sizes that decode exactly. Streams without the ``FZGC`` magic
     are parsed as the legacy headerless stream; a version other than
-    ``CONTAINER_VERSION`` raises :class:`FZFormatError`. ``tier`` is unused
-    (see :func:`to_bytes`).
+    ``CONTAINER_VERSION`` raises :class:`FZFormatError`. ``tier`` labels the
+    ``entropy_stage`` counters (see :func:`to_bytes`).
 
     Returns ``(container, cfg)``; ``cfg`` carries the decode statics
     (``code_mode``, ``exact_outliers``) and ``eb=0.0`` (the bound travels in
@@ -447,7 +551,7 @@ def from_bytes(raw: bytes, *, capacity: int | None = None,
     raw = memoryview(raw)
     if bytes(raw[:4]) != CONTAINER_MAGIC:
         return _from_legacy_bytes(raw, capacity=capacity,
-                                  outlier_capacity=outlier_capacity, device=dev)
+                                  outlier_capacity=outlier_capacity, tier=tier, device=dev)
     if len(raw) < _HDR.size + _TAIL.size:
         raise FZFormatError(f"container truncated: {len(raw)} bytes")
     _, version, flags, ndim, dtcode, _ = _HDR.unpack_from(raw, 0)
@@ -477,6 +581,8 @@ def from_bytes(raw: bytes, *, capacity: int | None = None,
     off += payload_len
     if flags & FLAG_ENTROPY:
         body = ent.decode(body)
+    obs.counter("entropy_stage", op="decode", selected=str(bool(flags & FLAG_ENTROPY)).lower(),
+                tier=tier or "adhoc").inc()
     if len(body) % enc.BLOCK_BYTES:
         raise FZFormatError(f"payload of {len(body)} bytes is not whole {enc.BLOCK_BYTES}-byte "
                             "blocks")
@@ -501,7 +607,7 @@ def from_bytes(raw: bytes, *, capacity: int | None = None,
 
 
 def _from_legacy_bytes(raw: memoryview, *, capacity: int | None,
-                       outlier_capacity: int | None,
+                       outlier_capacity: int | None, tier: str | None,
                        device: torch.device) -> tuple[FZCompressed, FZConfig]:
     """Parse the headerless pre-v1 checkpoint stream: i64 [n, nnz, n_outliers],
     f32 eb_abs, u32 bitflags, u16 payload rows, i32 outlier idx + val."""
@@ -525,6 +631,7 @@ def _from_legacy_bytes(raw: memoryview, *, capacity: int | None,
     oidx = np.frombuffer(raw, "<i4", n_out, off)
     off += 4 * n_out
     oval = np.frombuffer(raw, "<i4", n_out, off)
+    obs.counter("entropy_stage", op="decode", selected="false", tier=tier or "adhoc").inc()
     c = _unpack(bitflags, rows, n, nnz, oidx, oval, n_out, eb_abs, (n,), "float32",
                 capacity=capacity, outlier_capacity=outlier_capacity,
                 default_ocap=max(n_out, 1), device=device)

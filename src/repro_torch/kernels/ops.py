@@ -17,6 +17,14 @@ Two routes, selected by ``FZConfig.kernel_mode`` (``core/fz.py``):
   ``core.encode.compact_blocks``, as the reference leaves it to XLA) and
   ``bitunshuffle`` (K3). The staged wrappers take the signatures of the
   plain stages they replace.
+
+Each stage runs under an ``fz.stage.<name>`` span with ``backend=``, as in
+the reference (an ``obs.spans.leaf``: a stage opens no span inside it); ``backend`` is ``"cuda"`` where the wrapper launches its
+kernel and ``"cpu"`` where it runs its plain version for a CPU tensor (the
+plain stages of ``core/fz.py`` say ``"reference"``). Deliberate difference:
+in the reference these spans run only while jax traces the enclosing fz jit
+(``cat="jit-trace"``, once a compilation); the port has no jit, so they are
+runtime spans, nested under the ``fz.*`` span of every call.
 """
 from __future__ import annotations
 
@@ -24,13 +32,20 @@ import torch
 
 from ..core import encode as enc
 from ..core import quant, shuffle
+from ..obs import spans
+from . import fused_decode as _fd
 from .bitshuffle_flag import bitshuffle_flag, bitunshuffle_tiles
 from .fused_compress import TILE, fused_compress, fused_shuffle_encode
-from .fused_decode import fused_decompress
 from .lorenzo_quant import lorenzo_quant
 
 __all__ = ["fused_compress_stages", "fused_decompress", "lorenzo_quantize",
            "bitshuffle_flag_encode", "bitshuffle", "bitunshuffle"]
+
+
+def backend_label(t: torch.Tensor) -> str:
+    """Span label for where a stage runs: its kernel on the card, or its plain
+    version on the CPU."""
+    return "cuda" if t.device.type == "cuda" else "cpu"
 
 
 def _no_outliers(device: torch.device):
@@ -41,14 +56,26 @@ def _no_outliers(device: torch.device):
 def fused_compress_stages(data: torch.Tensor, eb: torch.Tensor, *, code_mode: str,
                           capacity: int, outlier_capacity: int = 0):
     """-> (bitflags, payload, nnz, outlier_idx, outlier_val, n_over)."""
-    if outlier_capacity > 0:
-        codes, oidx, oval, n_over = quant.dual_quantize(
-            data, eb, code_mode=code_mode, outlier_capacity=outlier_capacity)
-        flat = shuffle.pad_to_tiles(codes.reshape(-1)).to(torch.uint16)
-        bitflags, payload, nnz = fused_shuffle_encode(flat, capacity=capacity)
-        return bitflags, payload, nnz, oidx, oval, n_over
-    bitflags, payload, nnz = fused_compress(data, eb, capacity=capacity, code_mode=code_mode)
-    return (bitflags, payload, nnz, *_no_outliers(data.device))
+    with spans.leaf("fz.stage.fused_compress", backend=backend_label(data)):
+        if outlier_capacity > 0:
+            codes, oidx, oval, n_over = quant.dual_quantize(
+                data, eb, code_mode=code_mode, outlier_capacity=outlier_capacity)
+            flat = shuffle.pad_to_tiles(codes.reshape(-1)).to(torch.uint16)
+            bitflags, payload, nnz = fused_shuffle_encode(flat, capacity=capacity)
+            return bitflags, payload, nnz, oidx, oval, n_over
+        bitflags, payload, nnz = fused_compress(data, eb, capacity=capacity,
+                                                code_mode=code_mode)
+        return (bitflags, payload, nnz, *_no_outliers(data.device))
+
+
+def fused_decompress(bitflags: torch.Tensor, payload: torch.Tensor, eb: torch.Tensor, *,
+                     shape: tuple[int, ...], code_mode: str,
+                     outlier_idx: torch.Tensor | None = None,
+                     outlier_val: torch.Tensor | None = None) -> torch.Tensor:
+    """One-launch decompress (K6) mirroring :func:`fused_compress_stages`."""
+    with spans.leaf("fz.stage.fused_decompress", backend=backend_label(payload)):
+        return _fd.fused_decompress(bitflags, payload, eb, shape=shape, code_mode=code_mode,
+                                    outlier_idx=outlier_idx, outlier_val=outlier_val)
 
 
 def lorenzo_quantize(data: torch.Tensor, eb: torch.Tensor, *, code_mode: str = "sign_mag",
@@ -58,21 +85,23 @@ def lorenzo_quantize(data: torch.Tensor, eb: torch.Tensor, *, code_mode: str = "
     Paper mode is K1 (saturating uint16 codes, no outlier channel); strict
     mode routes to ``dual_quantize`` for the residuals, as the reference does.
     """
-    if outlier_capacity > 0:
-        return quant.dual_quantize(data, eb, code_mode=code_mode,
-                                   outlier_capacity=outlier_capacity)
-    return (lorenzo_quant(data, eb, code_mode=code_mode), *_no_outliers(data.device))
+    with spans.leaf("fz.stage.quantize", backend=backend_label(data)):
+        if outlier_capacity > 0:
+            return quant.dual_quantize(data, eb, code_mode=code_mode,
+                                       outlier_capacity=outlier_capacity)
+        return (lorenzo_quant(data, eb, code_mode=code_mode), *_no_outliers(data.device))
 
 
 def bitshuffle_flag_encode(codes_flat: torch.Tensor, *, capacity: int):
     """K2 + phase-2 compaction: equals ``encode(bitshuffle(codes_flat), capacity)``."""
     if codes_flat.numel() % TILE:
         raise ValueError(f"size {codes_flat.numel()} not a multiple of TILE={TILE}")
-    shuffled, byteflags = bitshuffle_flag(codes_flat.to(torch.uint16).reshape(-1, TILE))
-    # int16 view: the same bits, and a type every device's gather takes
-    return enc.compact_blocks(byteflags.reshape(-1).to(torch.bool),
-                              shuffled.view(torch.int16).reshape(-1, enc.BLOCK_WORDS),
-                              capacity=capacity)
+    with spans.leaf("fz.stage.shuffle_encode", backend=backend_label(codes_flat)):
+        shuffled, byteflags = bitshuffle_flag(codes_flat.to(torch.uint16).reshape(-1, TILE))
+        # int16 view: the same bits, and a type every device's gather takes
+        return enc.compact_blocks(byteflags.reshape(-1).to(torch.bool),
+                                  shuffled.view(torch.int16).reshape(-1, enc.BLOCK_WORDS),
+                                  capacity=capacity)
 
 
 def bitshuffle(codes_flat: torch.Tensor) -> torch.Tensor:
@@ -86,4 +115,5 @@ def bitunshuffle(words_flat: torch.Tensor) -> torch.Tensor:
 
     The decoder's words are int32; they become uint16 here, one pass before K3.
     """
-    return bitunshuffle_tiles(words_flat.to(torch.uint16).reshape(-1, TILE)).reshape(-1)
+    with spans.leaf("fz.stage.unshuffle", backend=backend_label(words_flat)):
+        return bitunshuffle_tiles(words_flat.to(torch.uint16).reshape(-1, TILE)).reshape(-1)

@@ -8,7 +8,11 @@ the paged FZ KV pool with continuous batching. The port of ``repro/launch/serve.
 Weights are random, drawn from a ``torch.Generator`` seeded 0 on the device.
 ``--paged`` decodes through K7 and compresses cold pages through K4/K6;
 ``--no-kernels`` takes the plain route. Runs on the CUDA card unless
-``--device cpu`` is given.
+``--device cpu`` is given. Telemetry (``repro_torch.obs.cli``):
+``--trace-out PATH`` writes the spans as a Chrome trace, ``--metrics-out
+PATH`` the metric registry and sentinel violations as JSON, and
+``--profile-dir DIR`` a ``torch.profiler`` trace of the run (the card's
+kernels too, when it runs on the card).
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--no-kernels", action="store_true",
                    help="the plain PyTorch route instead of the CUDA kernels")
     p.add_argument("--device", default="cuda")
+    from ..obs import cli as obs_cli
+    obs_cli.add_args(p)
     args = p.parse_args(argv)
 
     import numpy as np
@@ -49,6 +55,7 @@ def main(argv: list[str] | None = None) -> dict:
     params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
     rng = np.random.default_rng(0)
     use_kernels = not args.no_kernels
+    obs_cli.start(args, device=dev)
 
     if args.paged:
         cap = args.page_size * -(-(args.prompt_len + args.tokens + 1) // args.page_size)
@@ -67,6 +74,8 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"pool high-water {stats.high_water_used_bytes / 1e6:.2f} MB vs "
               f"{stats.high_water_demand_bytes / 1e6:.2f} MB raw demand")
         print("first sequence:", outputs[0])
+        obs_cli.finish(args, metadata={"arch": cfg.arch_id, "mode": "serve-paged",
+                                       "device": str(dev)})
         return {"outputs": outputs, "stats": stats}
 
     batch = {"tokens": rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
@@ -82,6 +91,7 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"KV parked: {cache_bytes(cache) / 1e6:.1f} MB -> "
               f"{compressed_cache_bytes(parked) / 1e6:.1f} MB")
         out["parked_bytes"] = compressed_cache_bytes(parked)
+    obs_cli.finish(args, metadata={"arch": cfg.arch_id, "mode": "serve", "device": str(dev)})
     return out
 
 

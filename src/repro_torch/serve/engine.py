@@ -17,14 +17,21 @@ The port of ``repro/serve/engine.py``. Two cache regimes:
 PyTorch runs eagerly, so there is nothing to trace or cache per shape. Where
 the reference asks its tuner (``repro.tune``) whether paged decode should run
 the kernel, the port takes ``PoolConfig.use_kernels`` as it stands: the tuner
-is not ported (ROADMAP, queue 1 item 6).
+is not ported (ROADMAP, queue 1 item 4).
+
+Telemetry, as the reference's: ``engine.prefill``, ``engine.decode_step``,
+``engine.decode_step_paged``, ``engine.park``, ``engine.resume`` and
+``engine.serve`` spans, and the ``engine_serve_tokens`` /
+``engine_serve_tokens_per_s`` gauges of the last ``serve``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
+from .. import obs
 from ..core import fz
 from ..device import resolve_device
 from ..models import zoo
@@ -107,7 +114,8 @@ class Engine:
         return self.pool_cfg is not None and self.pool_cfg.use_kernels
 
     def prefill(self, batch: dict):
-        return self.model.prefill(self.params, batch)
+        with obs.span("engine.prefill"):
+            return self.model.prefill(self.params, batch)
 
     def prefill_suffix(self, prefix: dict, batch: dict):
         """Suffix prefill against cached prefix K/V (prefix-sharing admission)."""
@@ -115,14 +123,17 @@ class Engine:
 
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """One decode step on an explicit cache (the pool's gathered view)."""
-        return self.model.decode(self.params, cache, tokens)
+        with obs.span("engine.decode_step"):
+            return self.model.decode(self.params, cache, tokens)
 
     def decode_step_paged(self, pages: dict, tokens: torch.Tensor):
         """One decode step on the page view (``PagePool.gather_pages``); returns
         ``(logits, (k_new, v_new))`` with the step's K/V (L, B, KVH, hd) for the
         pool append."""
         use_kernels = self.pool_cfg is None or self.pool_cfg.use_kernels
-        return self.model.decode_paged(self.params, pages, tokens, use_kernels=use_kernels)
+        with obs.span("engine.decode_step_paged"):
+            return self.model.decode_paged(self.params, pages, tokens,
+                                           use_kernels=use_kernels)
 
     # -- whole-cache parking (parity oracle for the pool) ----------------------
 
@@ -130,10 +141,12 @@ class Engine:
         """Compress a cache for in-memory parking (request preempted)."""
         if not self.kcfg.enabled:
             raise ValueError("park needs KVCompressionConfig(enabled=True)")
-        return compress_cache(cache, self.kcfg)
+        with obs.span("engine.park"):
+            return compress_cache(cache, self.kcfg)
 
     def resume(self, parked: dict) -> dict:
-        return decompress_cache(parked, self.kcfg)
+        with obs.span("engine.resume"):
+            return decompress_cache(parked, self.kcfg)
 
     def generate(self, batch: dict, n_tokens: int, *, park_between: bool = False):
         """Greedy generation; with ``park_between`` the cache is parked and
@@ -144,7 +157,7 @@ class Engine:
         for _ in range(n_tokens - 1):
             if park_between and self.kcfg.enabled:
                 cache = self.resume(self.park(cache))
-            logits, cache = self.decode_step(cache, tokens[-1])
+            logits, cache = self.model.decode(self.params, cache, tokens[-1])
             tokens.append(torch.argmax(logits, -1).to(torch.int32))
         return torch.stack(tokens, dim=1), cache
 
@@ -168,5 +181,12 @@ class Engine:
         """
         pool = pool or self.make_pool()
         batcher = kvpool.ContinuousBatcher(self, pool, max_batch=max_batch)
-        outputs, stats = batcher.run(requests)
+        t0 = time.perf_counter()
+        with obs.span("engine.serve", requests=len(requests)):
+            outputs, stats = batcher.run(requests)
+        dt = time.perf_counter() - t0
+        n_tokens = sum(len(v) for v in outputs.values())
+        obs.gauge("engine_serve_tokens").set(n_tokens)
+        if dt > 0:
+            obs.gauge("engine_serve_tokens_per_s").set(n_tokens / dt)
         return outputs, stats, pool

@@ -22,26 +22,36 @@ page once per call and fan the reconstruction out to every reader lane.
 Compression runs through the port's FZ entry points: paper mode
 (``exact_outliers=False``) is K4 on the card, reads are K6.
 
+Telemetry, as the reference's: the counters and high-water gauges live in the
+:mod:`repro_torch.obs` registry, labeled ``pool=pool<n>`` per instance, and
+``PoolStats`` is the view ``stats`` derives from them (``_POOL_METRICS``).
+Parking, cold reads and gathers run under the ``kvpool.park`` /
+``kvpool.cold_read`` / ``kvpool.gather`` spans. A sampled park (the first,
+then every 16th) decompresses the stored form through
+``fz.decompress_unmetered`` and holds it to the error bound
+(``_sentinel_check``, tier ``kv_cold`` or ``kv_cold_entropy``); its reads of
+the error are the one device sync telemetry adds.
+
 Deliberate differences from the reference:
 
 * ``PoolConfig.use_kernels`` defaults to True, as the port's ``FZConfig``
   does: FZ runs on K4/K6 and the engine's decode attention on K7.
   ``kernel_mode="auto"`` means ``"fused"`` (the tuner is not ported).
-* The counters are fields of this instance (``PoolStats``, same names)
-  until the ``obs`` slice; ``stats`` returns a snapshot. The park-time
-  sentinel check (``_sentinel_check``) waits for that slice too.
 * The slab is updated in place (the reference rebuilds its immutable
   array); ``page_data`` returns a copy, never a view of the slab.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 
 import torch
 
+from ... import obs
 from ...core import fz
 from ...device import resolve_device
+from ...obs import sentinels
 from .radix import EMPTY_MATCH, PrefixMatch, RadixIndex
 
 FREE = "free"
@@ -128,7 +138,9 @@ class Page:
 
 @dataclasses.dataclass
 class PoolStats:
-    """One pool's counters (the reference keeps them in its ``obs`` registry)."""
+    """Point-in-time view of one pool's counters, derived from the
+    :mod:`repro_torch.obs` registry (metrics labeled ``pool=<instance>``) on
+    every read of ``PagePool.stats``."""
     compressions: int = 0
     compress_dispatches: int = 0   # FZ calls issued for parking (batched)
     decompressions: int = 0        # containers actually decoded
@@ -141,6 +153,26 @@ class PoolStats:
     high_water_bytes: int = 0      # max raw-slab-in-use + compressed used_bytes
     high_water_demand_bytes: int = 0   # max live physical pages held fully raw
     high_water_logical_bytes: int = 0  # max per-seq mappings held raw + private
+
+
+# maps PoolStats fields to registry metric names (all labeled pool=<id>);
+# (kind, name): counters read .value, gauges read int(.value)
+_POOL_METRICS = {
+    "compressions": ("counter", "kvpool_compressions"),
+    "compress_dispatches": ("counter", "kvpool_compress_dispatches"),
+    "decompressions": ("counter", "kvpool_decompressions"),
+    "decompress_dispatches": ("counter", "kvpool_decompress_dispatches"),
+    "cow_promotions": ("counter", "kvpool_cow_promotions"),
+    "prefix_hit_pages": ("counter", "kvpool_prefix_hit_pages"),
+    "prefix_hit_tokens": ("counter", "kvpool_prefix_hit_tokens"),
+    "shared_cold_reads_deduped": ("counter", "kvpool_shared_cold_reads_deduped"),
+    "high_water_slots": ("gauge", "kvpool_high_water_slots"),
+    "high_water_bytes": ("gauge", "kvpool_high_water_bytes"),
+    "high_water_demand_bytes": ("gauge", "kvpool_high_water_demand_bytes"),
+    "high_water_logical_bytes": ("gauge", "kvpool_high_water_logical_bytes"),
+}
+
+_pool_ids = itertools.count()
 
 
 class PagePool:
@@ -167,24 +199,29 @@ class PagePool:
         n_flat = math.prod(self.page_shape)
         self._page_capacity = self._fzc.payload_capacity(n_flat)
         self._page_ocap = self._fzc.outlier_capacity(n_flat)
-        self._stats = PoolStats()
+        # a per-instance label, so pools in one process never cross-count
+        self._obs_id = f"pool{next(_pool_ids)}"
         self.radix: RadixIndex | None = None
         if cfg.prefix_mode != "off":
             self.radix = RadixIndex(self._ref, self._unref, min_match=cfg.min_match,
                                     max_cached_pages=cfg.max_cached_pages)
 
-    # -- counters ---------------------------------------------------------------
+    # -- telemetry ------------------------------------------------------------
 
-    def _count(self, field: str, n: int = 1) -> None:
-        setattr(self._stats, field, getattr(self._stats, field) + n)
+    def _count(self, name: str, n: int = 1) -> None:
+        obs.counter(name, pool=self._obs_id).inc(n)
 
-    def _water(self, field: str, v: int) -> None:
-        setattr(self._stats, field, max(getattr(self._stats, field), int(v)))
+    def _water(self, name: str, v: float) -> None:
+        obs.gauge(name, pool=self._obs_id).max(v)
 
     @property
     def stats(self) -> PoolStats:
-        """A snapshot of this pool's counters."""
-        return dataclasses.replace(self._stats)
+        """Derived snapshot of this pool's registry metrics (see PoolStats)."""
+        out = {}
+        for field, (_, name) in _POOL_METRICS.items():
+            m = obs.DEFAULT.find(name, pool=self._obs_id)
+            out[field] = int(m.value) if m is not None else 0
+        return PoolStats(**out)
 
     # -- geometry / accounting ------------------------------------------------
 
@@ -242,10 +279,10 @@ class PagePool:
 
     def note_high_water(self) -> None:
         """Sample peaks at allocation/promotion time."""
-        self._water("high_water_slots", self.cfg.num_pages - len(self.free_slots))
-        self._water("high_water_bytes", self.used_bytes())
-        self._water("high_water_demand_bytes", self.live_demand_bytes())
-        self._water("high_water_logical_bytes", self.logical_demand_bytes())
+        self._water("kvpool_high_water_slots", self.cfg.num_pages - len(self.free_slots))
+        self._water("kvpool_high_water_bytes", self.used_bytes())
+        self._water("kvpool_high_water_demand_bytes", self.live_demand_bytes())
+        self._water("kvpool_high_water_logical_bytes", self.logical_demand_bytes())
 
     # -- error bound ----------------------------------------------------------
 
@@ -305,7 +342,7 @@ class PagePool:
             self.slots[slot].copy_(self._decompress(old))
         self.seq_pages[seq][idx] = self._new_page(slot, step)
         self._unref(old_pid)
-        self._count("cow_promotions")
+        self._count("kvpool_cow_promotions")
         self.note_high_water()
         return True
 
@@ -357,8 +394,8 @@ class PagePool:
             self.seq_pages[seq] = list(match.pids)
         self.seq_len[seq] = matched
         self.radix.touch(match, step)
-        self._count("prefix_hit_pages", len(match.pids))
-        self._count("prefix_hit_tokens", matched)
+        self._count("kvpool_prefix_hit_pages", len(match.pids))
+        self._count("kvpool_prefix_hit_tokens", matched)
         self.note_high_water()
         if matched % self.cfg.page_size and self.cfg.prefix_mode != "copy":
             if not self._cow_page(seq, len(match.pids) - 1, step):
@@ -397,22 +434,27 @@ class PagePool:
                 if pid in self.pages and self.pages[pid].slot is not None]
         if not pids:
             return
-        flats = torch.stack([self.slots[self.pages[pid].slot].reshape(-1) for pid in pids])
-        self._ensure_eb(flats[0])
-        if len(pids) == 1:
-            comps = [fz.compress_with_eb(flats[0], self.eb_abs, self._fzc, device=self.device)]
-        else:
-            batch = fz.compress_batch_with_eb(flats, self.eb_abs, self._fzc, device=self.device)
-            comps = [dataclasses.replace(batch, **{f: getattr(batch, f)[i]
-                                                   for f in fz.FZCompressed.FIELDS})
-                     for i in range(len(pids))]
-        for pid, comp in zip(pids, comps):
-            page = self.pages[pid]
-            self._park_store(page, comp)
-            self.free_slots.append(page.slot)
-            page.slot = None
-            self._count("compressions")
-        self._count("compress_dispatches")
+        with obs.span("kvpool.park", pages=len(pids)):
+            flats = torch.stack([self.slots[self.pages[pid].slot].reshape(-1)
+                                 for pid in pids])
+            self._ensure_eb(flats[0])
+            if len(pids) == 1:
+                comps = [fz.compress_with_eb(flats[0], self.eb_abs, self._fzc,
+                                             device=self.device)]
+            else:
+                batch = fz.compress_batch_with_eb(flats, self.eb_abs, self._fzc,
+                                                  device=self.device)
+                comps = [dataclasses.replace(batch, **{f: getattr(batch, f)[i]
+                                                       for f in fz.FZCompressed.FIELDS})
+                         for i in range(len(pids))]
+            for pid, comp in zip(pids, comps):
+                page = self.pages[pid]
+                self._park_store(page, comp)
+                self.free_slots.append(page.slot)
+                page.slot = None
+                self._count("kvpool_compressions")
+            self._count("kvpool_compress_dispatches")
+            self._sentinel_check(flats[0], self.pages[pids[0]])
 
     def _park_store(self, page: Page, comp: fz.FZCompressed) -> None:
         """Hold a parked container in the configured cold form."""
@@ -431,6 +473,25 @@ class PagePool:
                              outlier_capacity=self._page_ocap, tier="kv_cold_entropy",
                              device=self.device)
         return c
+
+    def _sentinel_check(self, flat: torch.Tensor, page: Page) -> None:
+        """Sampled park-time health check: decompress the fresh container from
+        its stored form (unpacking the blob when the cold tier is entropy-coded)
+        through the unmetered path, so the dispatch accounting is untouched;
+        hold it to the error bound and feed the achieved ratio to the tier's
+        drift EWMA. The device reads below are paid only on sampled parks (the
+        first, then every ``obs.sentinels.CONFIG.eb_sample_every``-th)."""
+        tier = "kv_cold_entropy" if page.blob is not None else "kv_cold"
+        if not sentinels.should_check_eb(tier):
+            return
+        comp = self._container(page)
+        src = flat.to(torch.float32)
+        rec = fz.decompress_unmetered(comp, self._fzc, device=self.device)
+        max_err = float((src - rec).abs().max())
+        max_abs = float(src.abs().max())
+        sentinels.check_error_bound(tier, max_err, float(self.eb_abs), max_abs)
+        stored = len(page.blob) if page.blob is not None else float(comp.used_bytes())
+        sentinels.note_ratio(tier, comp.raw_bytes() / max(1.0, stored))
 
     def promote_page(self, pid: int, step: int) -> bool:
         """Compressed -> raw in place (before a write to a private page)."""
@@ -453,17 +514,19 @@ class PagePool:
         """Transient cold reads in one batched call, each in the slab's dtype."""
         if not pages:
             return []
-        self._count("decompressions", len(pages))
-        self._count("decompress_dispatches")
-        comps = [self._container(p) for p in pages]
-        if len(pages) == 1:
-            rec = fz.decompress(comps[0], self._fzc, device=self.device)[None]
-        else:
-            stacked = dataclasses.replace(
-                comps[0], **{f: torch.stack([getattr(c, f) for c in comps])
-                             for f in fz.FZCompressed.FIELDS})
-            rec = fz.decompress_batch(stacked, self._fzc, device=self.device)
-        return [rec[i].reshape(self.page_shape).to(self.slots.dtype) for i in range(len(pages))]
+        self._count("kvpool_decompressions", len(pages))
+        self._count("kvpool_decompress_dispatches")
+        with obs.span("kvpool.cold_read", pages=len(pages)):
+            comps = [self._container(p) for p in pages]
+            if len(pages) == 1:
+                rec = fz.decompress(comps[0], self._fzc, device=self.device)[None]
+            else:
+                stacked = dataclasses.replace(
+                    comps[0], **{f: torch.stack([getattr(c, f) for c in comps])
+                                 for f in fz.FZCompressed.FIELDS})
+                rec = fz.decompress_batch(stacked, self._fzc, device=self.device)
+            return [rec[i].reshape(self.page_shape).to(self.slots.dtype)
+                    for i in range(len(pages))]
 
     def _page_datas(self, pages: list[Page]) -> list[torch.Tensor]:
         """Contents of a mixed raw/cold page list (cold ones in one batched decode)."""
@@ -591,22 +654,27 @@ class PagePool:
         decode, so a shared cold container is decoded once per call. Empty
         lanes are zero-filled at length 0.
         """
-        P = self.cfg.max_pages_per_seq
-        lane_pids = [self.seq_pages.get(seq, []) if seq is not None else []
-                     for seq in lane_seqs]
-        cold_occurrences = [pid for pids in lane_pids for pid in pids
-                            if self.pages[pid].slot is None]
-        cold = list(dict.fromkeys(cold_occurrences))
-        self._count("shared_cold_reads_deduped", len(cold_occurrences) - len(cold))
-        cold_data = dict(zip(cold, self._decompress_many([self.pages[pid] for pid in cold])))
-        tensors, lengths = [], []
-        for seq, pids in zip(lane_seqs, lane_pids):
-            tensors += [self.slots[self.pages[pid].slot] if self.pages[pid].slot is not None
-                        else cold_data[pid] for pid in pids]
-            tensors += [self._zero_page] * (P - len(pids))
-            lengths.append(self.seq_len.get(seq, 0) if seq is not None else 0)
-        arr = torch.stack(tensors).reshape(len(lane_seqs), P, *self.page_shape)
-        return arr, torch.tensor(lengths, dtype=torch.int32, device=self.device)
+        obs.gauge("kvpool_lanes", pool=self._obs_id).set(
+            sum(1 for s in lane_seqs if s is not None))
+        with obs.span("kvpool.gather", lanes=len(lane_seqs)):
+            P = self.cfg.max_pages_per_seq
+            lane_pids = [self.seq_pages.get(seq, []) if seq is not None else []
+                         for seq in lane_seqs]
+            cold_occurrences = [pid for pids in lane_pids for pid in pids
+                                if self.pages[pid].slot is None]
+            cold = list(dict.fromkeys(cold_occurrences))
+            self._count("kvpool_shared_cold_reads_deduped", len(cold_occurrences) - len(cold))
+            cold_data = dict(zip(cold, self._decompress_many([self.pages[pid]
+                                                              for pid in cold])))
+            tensors, lengths = [], []
+            for seq, pids in zip(lane_seqs, lane_pids):
+                tensors += [self.slots[self.pages[pid].slot]
+                            if self.pages[pid].slot is not None else cold_data[pid]
+                            for pid in pids]
+                tensors += [self._zero_page] * (P - len(pids))
+                lengths.append(self.seq_len.get(seq, 0) if seq is not None else 0)
+            arr = torch.stack(tensors).reshape(len(lane_seqs), P, *self.page_shape)
+            return arr, torch.tensor(lengths, dtype=torch.int32, device=self.device)
 
     def gather(self, lane_seqs: list[int | None]):
         """The fixed-width contiguous decode cache for a set of lanes:

@@ -34,18 +34,24 @@ for more concurrent sequences than the raw slab could hold. Latency is
 tracked in scheduler steps: TTFT (admission step minus arrival) and
 inter-token gaps (preemption stretches them) land in ``TraceStats`` per
 request for the SLO accounting in ``tracegen.latency_summary``.
-Deliberate differences from the reference: the counters are fields of
-the batcher (``TraceStats``, same names) until the ``obs`` slice, and the
-per-step health gate (``sentinels.note_scheduler`` / ``assert_healthy``)
-waits for that slice too.
+
+Telemetry, as the reference's: the batcher's counters live in the
+:mod:`repro_torch.obs` registry, labeled ``batcher=batcher<n>``, and
+``TraceStats`` is the view ``stats`` derives from them and the pool's. Each
+step runs under a ``sched.step`` span, feeds the scheduler gauges
+(``sentinels.note_scheduler``) and ends in ``sentinels.assert_healthy()``,
+which raises ``HealthError`` once a parked page has broken the error bound.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
 
+from ... import obs
+from ...obs import sentinels
 from .policy import TieredPolicy
 from .pool import PagePool
 from .radix import EMPTY_MATCH, PrefixMatch
@@ -77,8 +83,9 @@ class SeqRecord:
 
 @dataclasses.dataclass
 class TraceStats:
-    """Snapshot of one batcher's serving counters: its own counts, the pool's
-    counters, and per-request latency in scheduler steps."""
+    """Point-in-time view of one batcher's serving counters: its registry
+    counters (labeled ``batcher=<instance>``), the pool's own view, and
+    per-request latency in scheduler steps from plain batcher attributes."""
     decode_steps: int = 0
     admissions: int = 0
     preemptions: int = 0
@@ -102,9 +109,20 @@ class TraceStats:
     itl_steps: dict[int, list[int]] = dataclasses.field(default_factory=dict)
 
 
-# TraceStats fields the batcher counts itself
-_SCHED_FIELDS = ("decode_steps", "admissions", "preemptions", "resumes", "completed",
-                 "tiered_pages", "prefix_hits", "prefill_tokens", "prefill_tokens_saved")
+# TraceStats fields backed by per-batcher registry counters
+_SCHED_METRICS = {
+    "decode_steps": "sched_decode_steps",
+    "admissions": "sched_admissions",
+    "preemptions": "sched_preemptions",
+    "resumes": "sched_resumes",
+    "completed": "sched_completed",
+    "tiered_pages": "sched_tiered_pages",
+    "prefix_hits": "sched_prefix_hits",
+    "prefill_tokens": "sched_prefill_tokens",
+    "prefill_tokens_saved": "sched_prefill_tokens_saved",
+}
+
+_batcher_ids = itertools.count()
 
 
 class ContinuousBatcher:
@@ -125,21 +143,25 @@ class ContinuousBatcher:
                        and callable(getattr(engine, "prefill_suffix", None)))
         self.lanes: list[int | None] = [None] * max_batch
         self.recs: dict[int, SeqRecord] = {}
-        self._counts = dict.fromkeys(_SCHED_FIELDS, 0)
+        self._obs_id = f"batcher{next(_batcher_ids)}"
         self._ttft_steps: dict[int, int] = {}
         self._itl_steps: dict[int, list[int]] = {}
 
-    # -- counters -------------------------------------------------------------
+    # -- telemetry ------------------------------------------------------------
 
     def _count(self, name: str, n: int = 1) -> None:
-        self._counts[name] += n
+        obs.counter(name, batcher=self._obs_id).inc(n)
 
     @property
     def stats(self) -> TraceStats:
-        """Snapshot: the batcher's counts + the pool's own counters."""
+        """Derived snapshot: registry counters + the pool's own snapshot."""
+        vals = {}
+        for field, name in _SCHED_METRICS.items():
+            m = obs.DEFAULT.find(name, batcher=self._obs_id)
+            vals[field] = int(m.value) if m is not None else 0
         ps = self.pool.stats
         return TraceStats(
-            **self._counts,
+            **vals,
             high_water_used_bytes=ps.high_water_bytes,
             high_water_demand_bytes=ps.high_water_demand_bytes,
             high_water_logical_bytes=ps.high_water_logical_bytes,
@@ -175,7 +197,7 @@ class ContinuousBatcher:
         self.policy.park(self.pool, seq)
         self.lanes[rec.lane] = None
         rec.lane, rec.state = None, PARKED
-        self._count("preemptions")
+        self._count("sched_preemptions")
 
     def _emit(self, rec: SeqRecord, tok: int, step: int) -> None:
         """Record one generated token + its latency sample."""
@@ -196,7 +218,7 @@ class ContinuousBatcher:
         if rec.lane is not None:
             self.lanes[rec.lane] = None
         rec.lane, rec.state = None, FINISHED
-        self._count("completed")
+        self._count("sched_completed")
 
     def _preempt_for(self, step: int, *, admitting_priority: int | None = None) -> bool:
         """Park the policy victim to relieve pressure; returns True if parked.
@@ -227,7 +249,7 @@ class ContinuousBatcher:
         self._emit(rec, int(torch.argmax(logits[0])), step)
         rec.lane, rec.state, rec.arrival = lane, RUNNING, step
         self.lanes[lane] = seq
-        self._count("admissions")
+        self._count("sched_admissions")
         if len(rec.generated) >= rec.req.n_new:
             self._finish(seq, outputs)
 
@@ -255,7 +277,7 @@ class ContinuousBatcher:
             return False
         if self.prefix:
             self.pool.insert_prompt(seq, prompt, step)
-        self._count("prefill_tokens", len(prompt))
+        self._count("sched_prefill_tokens", len(prompt))
         self._start_running(rec, logits, step, outputs)
         return True
 
@@ -288,9 +310,9 @@ class ContinuousBatcher:
             self.pool.free_seq(seq)
             return False
         self.pool.insert_prompt(seq, prompt, step)
-        self._count("prefix_hits")
-        self._count("prefill_tokens", len(suffix))
-        self._count("prefill_tokens_saved", matched)
+        self._count("sched_prefix_hits")
+        self._count("sched_prefill_tokens", len(suffix))
+        self._count("sched_prefill_tokens_saved", matched)
         self._start_running(rec, logits, step, outputs)
         return True
 
@@ -301,7 +323,7 @@ class ContinuousBatcher:
         lane = self._free_lane()
         rec.lane, rec.state = lane, RUNNING
         self.lanes[lane] = seq
-        self._count("resumes")
+        self._count("sched_resumes")
         return True
 
     # -- the step -------------------------------------------------------------
@@ -322,9 +344,13 @@ class ContinuousBatcher:
 
     def step(self, step: int, outputs: dict) -> bool:
         """One scheduler iteration; returns True if any progress was made."""
+        with obs.span("sched.step", step=step):
+            return self._step(step, outputs)
+
+    def _step(self, step: int, outputs: dict) -> bool:
         progress = False
         # 1. routine cooling
-        self._count("tiered_pages",
+        self._count("sched_tiered_pages",
                     self.policy.tier(self.pool, step, self._protect()))
         # 2. resume parked: highest priority, oldest, then req_id
         for rec in sorted((r for r in self.recs.values() if r.state == PARKED),
@@ -375,8 +401,18 @@ class ContinuousBatcher:
                 self._emit(rec, int(next_tokens[lane]), step)
                 if len(rec.generated) >= rec.req.n_new:
                     self._finish(seq, outputs)
-            self._count("decode_steps")
+            self._count("sched_decode_steps")
             progress = True
+        # 6. health: queue-depth/starvation gauges for the sentinels, then the
+        # per-step health gate (raises on any error-bound violation)
+        waiting = [r for r in self.recs.values()
+                   if r.state == WAITING and r.req.arrive_at <= step]
+        sentinels.note_scheduler(
+            waiting=len(waiting),
+            running=sum(1 for r in self.recs.values() if r.state == RUNNING),
+            parked=sum(1 for r in self.recs.values() if r.state == PARKED),
+            oldest_wait_steps=max((step - r.req.arrive_at for r in waiting), default=0))
+        sentinels.assert_healthy()
         return progress
 
     def run(self, requests: list[Request]) -> tuple[dict[int, np.ndarray],
@@ -424,6 +460,7 @@ class ContinuousBatcher:
                     f"{len(self.recs)} requests)")
         if not all(r.state == FINISHED for r in self.recs.values()):
             raise RuntimeError("kvpool scheduler exceeded max_steps")
-        # end-of-trace drain: the radix cache's page references go last
+        # end-of-trace drain: the radix cache's page references go last;
+        # the stats property folds the pool's counters in on every read
         self.pool.release_prefix_cache()
         return outputs, self.stats

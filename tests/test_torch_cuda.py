@@ -437,3 +437,91 @@ def test_smoke_serve_on_the_card_launches_k7_per_layer_and_step(cuda):
     assert out["stats"].completed == 2
     assert counts["flash_decode"] == out["stats"].decode_steps * 2      # 2 layers
     assert counts["fused_compress"] > 0 and counts["fused_decompress"] > 0
+
+
+# -- obs on the card ------------------------------------------------------------
+
+def _syncs(fn) -> int:
+    """Synchronizing CUDA calls ``fn`` makes, as ``set_sync_debug_mode("warn")``
+    reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_span_around_k4_records_its_event_and_adds_no_sync(cuda):
+    from repro_torch import compress_with_eb, obs
+    from repro_torch.obs import spans
+    obs.reset()
+    obs.clear_events()
+    try:
+        x = _field((9, 33, 70)).to(cuda)
+        eb = torch.tensor(1e-3, device=cuda)
+        with obs.span("k4.call", data=x):
+            kernels.fused_compress(x, eb, capacity=64)
+        (ev,) = [e for e in spans.events() if e["name"] == "k4.call"]
+        assert ev["cat"] == "span" and ev["args"]["data"] == "Tensor[9, 33, 70] float32 cuda:0"
+        cfg = FZConfig(eb_mode="abs", exact_outliers=False)
+        call = lambda: compress_with_eb(x, 1e-3, cfg)     # noqa: E731
+        call()
+        on = _syncs(call)
+        with obs.disabled():
+            off = _syncs(call)
+        assert on == off
+        assert obs.counter("fz_dispatches", op="compress", path="fused").value >= 2
+        stage = [e for e in spans.events() if e["name"] == "fz.stage.fused_compress"]
+        assert stage and all(e["args"] == {"backend": "cuda"} for e in stage)
+    finally:
+        obs.reset()
+        obs.clear_events()
+
+
+def test_span_in_a_cuda_graph_capture_records_only_a_trace_time_event(cuda):
+    from repro_torch import obs
+    from repro_torch.obs import spans
+    obs.reset()
+    obs.clear_events()
+    try:
+        x = torch.arange(4096, dtype=torch.float32, device=cuda)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):            # warm up off the capture
+            y = x * 2 + 1
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            with obs.span("graph.body"):
+                y = x * 2 + 1
+        x.copy_(torch.arange(4096, dtype=torch.float32, device=cuda) * 3)
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, x * 2 + 1)
+        evs = [e for e in spans.events() if e["name"] == "graph.body"]
+        assert len(evs) == 1 and evs[0]["cat"] == "jit-trace"
+        assert obs.counter("span_traces", span="graph.body").value == 1
+        assert obs.counter("span_calls", span="graph.body").value == 0
+        assert not spans.trace_time()
+    finally:
+        obs.reset()
+        obs.clear_events()
+
+
+def test_launcher_profile_dir_holds_the_card_kernels(cuda, tmp_path):
+    import json
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import cli as obs_cli
+    launch_serve.main(["--arch", "yi-6b", "--smoke", "--paged", "--prompt-len", "24",
+                       "--tokens", "4", "--profile-dir", str(tmp_path)])
+    doc = json.loads((tmp_path / obs_cli.PROFILE_FILE).read_text())
+    kernel_names = {e["name"] for e in doc["traceEvents"] if e.get("cat") == "kernel"}
+    assert any("flash_decode" in n for n in kernel_names), sorted(kernel_names)[:20]
+    ranges = {e["name"] for e in doc["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"engine.serve", "sched.step", "engine.decode_step_paged"} <= ranges

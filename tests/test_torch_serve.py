@@ -20,7 +20,8 @@
   ``tests/test_kvpool.py``: bfloat16 logits differ in the last bits, so a
   near-tie can break the other way). The kernel route's stats equal the
   plain route's.
-* ``python -m repro_torch.launch.serve --smoke --device cpu`` in both modes.
+* ``python -m repro_torch.launch.serve --smoke --device cpu`` in both modes,
+  with ``--trace-out`` and ``--metrics-out``: both files are written.
 
 On jax 0.9 the reference needs two aliases; the ``ref`` fixture sets them for
 one test and clears JAX's caches afterwards, so no other test sees them.
@@ -315,13 +316,29 @@ def test_overlong_request_rejected_up_front(engines):
 
 @pytest.mark.parametrize("mode", [["--paged"], ["--paged", "--no-kernels"],
                                   ["--kv-compress"]])
-def test_launcher_on_the_cpu(mode, capsys):
+def test_launcher_on_the_cpu(mode, capsys, tmp_path):
+    import json
+    from repro_torch import obs
+    obs.reset()
+    obs.clear_events()
+    trace, metrics = tmp_path / "trace.json", tmp_path / "metrics.json"
     out = launch_serve.main(["--arch", "yi-6b", "--smoke", "--device", "cpu",
-                             "--prompt-len", "24", "--tokens", "6", *mode])
+                             "--prompt-len", "24", "--tokens", "6", *mode,
+                             "--trace-out", str(trace), "--metrics-out", str(metrics)])
     text = capsys.readouterr().out
     assert "yi-6b-smoke" in text and "on cpu" in text
+    doc = json.loads(trace.read_text())
+    names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    assert doc["otherData"]["arch"] == "yi-6b-smoke" and doc["otherData"]["device"] == "cpu"
+    snap = json.loads(metrics.read_text())
+    assert snap["sentinel_violations"] == {}
     if "--paged" in mode:
         assert out["stats"].completed == 2 and out["stats"].decode_steps > 0
         assert all(len(t) == 6 for t in out["outputs"].values())
+        assert {"engine.serve", "sched.step", "kvpool.gather"} <= names
+        assert snap["gauges"]["engine_serve_tokens"] == 12
     else:
         assert tuple(out["tokens"].shape) == (2, 6) and out["parked_bytes"] > 0
+        assert {"engine.prefill", "engine.park", "engine.resume"} <= names
+    obs.reset()
+    obs.clear_events()
