@@ -120,7 +120,32 @@ Phases (each prints its own lines):
      500, 500) f32, rel eb 1e-3, interleaved with telemetry on and under
      ``obs.disabled()``, medians of 1000 each; raises at 5% or more. A span
      inside a CUDA graph capture records only ``span_traces`` and one
-     ``jit-trace`` event, and the replayed graph gives the eager result.
+     ``jit-trace`` event, and the replayed graph gives the eager result;
+  13. tune and resources (``repro_torch.tune``, ``repro_torch.analysis``). The
+     script points the tuner at a fresh cache under ``chiprun_out/tune/`` when
+     it starts (the launcher's subprocess too), so phases 1-12 run with an
+     empty cache, on the untuned routes. The resource table of every
+     ``__global__`` over the shipped space (registers, spill stores and static
+     shared bytes from the ptxas logs the build keeps, dynamic shared bytes
+     from the C side's queries, threads, CTAs an SM); any ``smem-overflow``
+     or ``reg-overflow`` the port's baseline does not list fails, and so does
+     a launch point whose C query gave no answer. Then ``ensure_tuned`` on the
+     reference's smoke points and the card's own (``fz.compress`` /
+     ``fz.decompress`` at the (100, 500, 500) f32 timing field, and at the
+     2,097,152-element bf16 serving page; ``decode_attention`` at the
+     engine's own paged geometry: Yi-6B's heads, pages of 64, four lanes),
+     printing each entry. On the card the plain route is measured as the
+     oracle and never chosen, and a kernel route that is skipped or rejected
+     raises; a second run is all hits with no measurement. The timing
+     point's choice serves its whole size bucket, so the same point in
+     strict mode and as a 1-D stream is measured into a cache of its own and
+     must choose the same route. The seeded wrong candidate is rejected and
+     a seeded candidate whose spec asks for 300 KiB of shared memory is
+     skipped and never launched -- each raising, with nothing cached. With
+     the tuned cache, "auto" at the timing shape (strict and paper) equals
+     the explicit route the cache names, bit for bit, and ``fz_dispatches``
+     names it; an ``Engine`` chooses the kernel, and a short trace launches
+     K7 once per layer per decode step.
 
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
@@ -219,6 +244,13 @@ OBS_OVERHEAD_LIMIT = 0.05  # the reference's bench tier pins obs under 5% of a r
 # 1000 pairs (about 1.3 s) span them
 OBS_ROUND_TRIPS = 1000
 TELEMETRY_DIR = ROOT / "chiprun_out" / "telemetry"    # listed in .gitignore
+TUNE_DIR = ROOT / "chiprun_out" / "tune"              # the run's fresh tuning cache
+# the card's own tuning points: the timing shape (bucket 2^25) and the serving
+# page (2 x 32 layers x 64 x 4 x 128 bf16), both directions; decode attention
+# at phase 8's pool (Yi-6B: 4 KV heads of 128)
+TIMING_N = 100 * 500 * 500
+SERVE_PAGE_N = 2097152
+EVIL_SMEM = 300 * 1024      # the seeded budget candidate's dynamic shared bytes
 FIXTURES = ("tests/data/container_v1_plain.bin", "tests/data/container_v1_entropy.bin",
             "tests/data/legacy_stream.bin")
 
@@ -1035,6 +1067,211 @@ def telemetry_phase(card, dev, serving, x) -> None:
     say(12, f"telemetry phase done in {time.time() - t_phase:.1f} s")
 
 
+def tune_phase(card, dev, serving, x) -> None:
+    """Phase 13: the resource table and its gates, the tuner on the card's
+    points and its gates, and "auto" / the engine on the tuned cache (phase
+    8's model). Raises on any failed gate."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch import kernels, obs, tune
+    from repro_torch.analysis import report, resources, space
+    from repro_torch.analysis.kernelspec import KernelSpec
+    from repro_torch.kernels import ref
+    from repro_torch.serve import Engine, PoolConfig
+    from repro_torch.serve.kvpool import tracegen
+    from repro_torch.tune import __main__ as tune_cli
+    from repro_torch.tune import dispatch, impls, registry, tuner
+
+    t_phase = time.time()
+    model, params = serving["model"], serving["params"]
+
+    def log(msg):
+        say(13, msg)
+
+    # -- the resource table ------------------------------------------------
+    ptxas = resources.ptxas_info(build=True)
+    if ptxas is None:
+        raise AssertionError("no ptxas log beside the built kernel libraries")
+    rep = report.run_all(ptxas=ptxas)
+    (TUNE_DIR / "resources.json").write_text(json.dumps(rep.to_json(), indent=1) + "\n")
+    for r in rep.rows:
+        say(13, f"{card} | resources {r['name']} ({r['module']}: {r['symbol']}): "
+                f"{r['registers']} registers, {r['spill_stores']} B spill stores, shared "
+                f"{r['static_smem']} B static + {r['dynamic_smem']} B dynamic, "
+                f"{r['threads']} threads, {r['ctas_per_sm']} CTAs an SM (by {r['limited_by']}; "
+                f"launch bounds {r['min_ctas']}); {r['points']} point(s), first "
+                f"{r['first_point']}")
+    for f in rep.findings:
+        say(13, f"finding {'NEW ' if f in rep.new else 'baselined '}{f.severity} {f.key}: "
+                f"{f.message}")
+    for key in rep.stale:
+        say(13, f"baseline entry the card does not produce: {key}")
+    refused = [f for f in rep.new if f.rule in tuner.BUDGET_RULES]
+    if refused:
+        raise AssertionError("launches the card refuses, not in the baseline: "
+                             + "; ".join(f"{f.key}: {f.message}" for f in refused))
+    specs = space.build_specs()
+    unmeasured = sorted({s.name for s in specs if s.dynamic_smem is None})
+    if unmeasured:
+        raise AssertionError(f"no dynamic shared bytes from the C side for {unmeasured}")
+    n_queries = len({s.c_query for s in specs if s.c_query is not None})
+    say(13, f"dynamic shared bytes from {n_queries} C queries at {len(specs)} launch points; "
+            f"{len(rep.findings)} finding(s), {len(rep.new)} new")
+
+    # -- tuning --------------------------------------------------------------
+    # the engine's own decode-attention point: its heads, head size, pages, lanes
+    attn = Engine(model, params, pool=PoolConfig(**SERVE_POOL),
+                  device=dev).attention_workload(batch=SERVE_LANES)
+    timing = {"shape": TIMING_SHAPE, "mode": "paper"}
+    workloads = list(tune_cli.SMOKE_WORKLOADS) + [
+        ("fz.compress", TIMING_N, "float32", timing), ("fz.decompress", TIMING_N, "float32", timing),
+        ("fz.compress", SERVE_PAGE_N, "bfloat16"), ("fz.decompress", SERVE_PAGE_N, "bfloat16"),
+        attn]
+    t0 = time.time()
+    kernels.reset_launch_counts()
+    first = tune.ensure_tuned(workloads, device=dev, log=log)
+    say(13, f"tuned {first['misses']} points in {time.time() - t0:.1f} s "
+            f"({first['measurements']} measurements), launches {kernels.launch_counts()}")
+
+    def show(r, where=""):
+        us = ", ".join(f"{i} {v:.1f}" for i, v in sorted(r["measured_us"].items()))
+        say(13, f"{card} | tune{where} {r['op']} n={r['n']} (bucket "
+                f"{tune.shape_bucket(r['n'])}) {r['dtype']} {r['geometry'] or ''}: "
+                f"{r['impl']} wins; us: {us}; skipped {r['skipped'] or 'none'}; "
+                f"rejected {r['rejected'] or 'none'}")
+
+    for r in first["results"]:
+        show(r)
+        if r["rejected"] or r["skipped"] or r["impl"] in dispatch.PLAIN_IMPLS:
+            raise AssertionError(f"{r['op']} n={r['n']} {r['dtype']}: the card's tuning "
+                                 f"chose {r['impl']}, skipped {r['skipped']}, rejected "
+                                 f"{r['rejected']}")
+    # the key is the size bucket: the timing point's choice (the 3-D paper field)
+    # also serves strict calls and 1-D streams of that bucket, so both are measured
+    # (force: they share the key) into a cache of their own and must choose the same
+    variants = tune.ensure_tuned(
+        [(op, TIMING_N, "float32", g) for g in ({"shape": TIMING_SHAPE, "mode": "strict"},
+                                                {"shape": (TIMING_N,), "mode": "paper"})
+         for op in ("fz.compress", "fz.decompress")],
+        cache=tune.TuneCache(TUNE_DIR / "variants.json"), force=True, device=dev, log=log)
+    chosen = {r["op"]: r["impl"] for r in first["results"] if r["n"] == TIMING_N}
+    for r in variants["results"]:
+        show(r, " (variant)")
+        if r["impl"] != chosen[r["op"]]:
+            raise AssertionError(f"{r['op']} at {r['geometry']} chooses {r['impl']}, the "
+                                 f"cached timing point {chosen[r['op']]}")
+    second = tune.ensure_tuned(workloads, device=dev, log=log)
+    if second["hits"] != len(workloads) or second["measurements"] != 0:
+        raise AssertionError(f"the second ensure_tuned measured again: {second['hits']} hits, "
+                             f"{second['measurements']} measurements")
+    say(13, f"second ensure_tuned: {second['hits']} hits, 0 measurements "
+            f"({second['cache_entries']} entries in {second['cache_path']})")
+
+    # -- the gates' seeded candidates, into a cache of their own ----------------
+    # on the card a rejected or skipped candidate is a fault: TuneError, no entry
+    gates = tune.TuneCache(TUNE_DIR / "gates.json")
+    try:
+        with registry.scoped(impls.evil_candidate("fz.decompress")):
+            tuner.tune_op("fz.decompress", n=1 << 20, dtype="float32", cache=gates,
+                          device=dev, log=log)
+        raise AssertionError("the zeroed decode was not rejected")
+    except tuner.TuneError as err:
+        if set(err.rejected) != {"evil"} or len(gates):
+            raise AssertionError(f"the zeroed decode: {err}") from None
+        say(13, f"evil candidate rejected, nothing cached: {err.rejected['evil']}")
+
+    def budget_context(*, n, dtype, device):
+        data = torch.from_numpy(np.cumsum(np.random.default_rng(n).standard_normal(n)
+                                          .astype(np.float32))).to(device)
+        return {"n": n, "dtype": dtype, "device": device, "data": data,
+                "eb": torch.full((), 1e-3, dtype=torch.float32, device=device)}
+
+    registry.register_op(registry.OpSpec(
+        name="smoke.budget", reference="plain", make_context=budget_context,
+        parity=lambda ctx, out, want: None if all(torch.equal(a, b) for a, b in zip(out, want))
+        else "differs", gate="bit-identity"))
+    try:
+        registry.register(registry.Candidate(
+            op="smoke.budget", impl="plain", make_runner=lambda ctx: lambda: ref.fused_compress_ref(
+                ctx["data"], ctx["eb"], capacity=ctx["n"] // 8)))
+        registry.register(registry.Candidate(
+            op="smoke.budget", impl="huge", make_runner=lambda ctx: lambda: kernels.fused_compress(
+                ctx["data"], ctx["eb"], capacity=ctx["n"] // 8),
+            kernel_specs=lambda ctx: [KernelSpec(
+                name="smoke.budget", module="fz_compress.cu", symbol="encode_tiles",
+                grid=(ctx["n"] // 4096,), threads=256, dynamic_smem=EVIL_SMEM,
+                point=f"{EVIL_SMEM} B seeded")]))
+        before = kernels.launch_counts()
+        try:
+            tuner.tune_op("smoke.budget", n=1 << 20, dtype="float32", cache=gates,
+                          device=dev, log=log)
+            raise AssertionError("the 300 KiB candidate was not skipped")
+        except tuner.TuneError as err:
+            skipped = err.skipped
+        after = kernels.launch_counts()
+    finally:
+        registry._OPS.pop("smoke.budget", None)
+        registry._CANDS.pop("smoke.budget", None)
+    if set(skipped) != {"huge"} or "smem-overflow" not in skipped["huge"] or after != before:
+        raise AssertionError(f"the 300 KiB candidate was not skipped unlaunched: {skipped}, "
+                             f"launches {before} -> {after}")
+    say(13, f"budget candidate skipped, no launch: {skipped['huge']}")
+
+    # -- auto on the tuned cache ------------------------------------------------
+    arch = dispatch.arch(dev)
+
+    def winner(op, n, dtype):
+        return dispatch.active_cache().get(
+            tune.cache_key(dispatch.backend(dev), op, n, dtype, arch))["impl"]
+
+    c_route = winner("fz.compress", x.numel(), "float32")
+    d_route = winner("fz.decompress", x.numel(), "float32")
+    for exact in (True, False):
+        auto = rt.FZConfig(eb=1e-3, exact_outliers=exact)
+        c_cfg = dataclasses.replace(auto, kernel_mode=c_route)
+        d_cfg = dataclasses.replace(auto, kernel_mode=d_route)
+        snap = obs.snapshot()["counters"]
+        c = rt.compress(x, auto)
+        y = rt.decompress(c, auto)
+        torch.cuda.synchronize()
+        delta = {k: v - snap.get(k, 0) for k, v in obs.snapshot()["counters"].items()
+                 if k.startswith("fz_dispatches") and v != snap.get(k, 0)}
+        want = {f"fz_dispatches{{op=compress,path={c_route}}}": 1,
+                f"fz_dispatches{{op=decompress,path={d_route}}}": 1}
+        if delta != want:
+            raise AssertionError(f"auto dispatched {delta}, the cache names {want}")
+        ce = rt.compress(x, c_cfg)
+        for f in c.FIELDS:
+            if not torch.equal(getattr(c, f), getattr(ce, f)):
+                raise AssertionError(f"auto's container differs from {c_route}'s in {f}")
+        if not torch.equal(y.view(torch.int32), rt.decompress(c, d_cfg).view(torch.int32)):
+            raise AssertionError(f"auto's reconstruction differs from {d_route}'s")
+        say(13, f"auto {'strict' if exact else 'paper'} at {TIMING_SHAPE}: compress "
+                f"{c_route}, decompress {d_route} (as the cache names them), bit-identical to "
+                f"the explicit routes; dispatches {delta}")
+
+    # -- the engine on the tuned cache ------------------------------------------
+    eng = Engine(model, params, pool=PoolConfig(**SERVE_POOL), device=dev)
+    reqs = tracegen.generate(tracegen.TraceGenConfig(**{
+        **SERVE_TRACE, "n_requests": 2, "template_len": (64, 96), "suffix_len": (16, 32),
+        "n_new": (4, 6)}))
+    kernels.reset_launch_counts()
+    _, stats, _ = eng.serve(reqs, max_batch=SERVE_LANES)
+    torch.cuda.synchronize()
+    k7 = kernels.launch_counts()["flash_decode"]
+    want = model.cfg.n_layers * stats.decode_steps
+    if eng.decode_attention != "kernel" or k7 != want or stats.completed != len(reqs):
+        raise AssertionError(f"the engine chose {eng.decode_attention!r} and launched K7 {k7} "
+                             f"times in {stats.decode_steps} decode steps (want {want}); "
+                             f"{stats.completed} of {len(reqs)} completed")
+    say(13, f"Engine decode attention on the tuned cache: {eng.decode_attention} "
+            f"(decode_attention n={attn[1]} {attn[2]} {attn[3]}); {stats.decode_steps} decode steps "
+            f"launched K7 {k7} times ({model.cfg.n_layers} layers)")
+    say(13, f"tune phase done in {time.time() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1048,6 +1285,17 @@ def main() -> int:
     from repro_torch.data.fields import make_field
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.fused_compress import shuffle_encode_ctas
+    from repro_torch.tune import cache as tune_cache
+    from repro_torch.tune import dispatch as tune_dispatch
+
+    # a fresh tuning cache for this run (phases 1-12 run untuned; phase 13
+    # tunes into it), also for the launcher's subprocess of phase 12
+    TUNE_DIR.mkdir(parents=True, exist_ok=True)
+    fresh_cache = TUNE_DIR / "tune_cache.json"
+    for stale in ("tune_cache.json", "variants.json", "gates.json"):
+        (TUNE_DIR / stale).unlink(missing_ok=True)
+    os.environ[tune_cache.ENV_VAR] = str(fresh_cache)
+    tune_dispatch.configure(fresh_cache)
 
     # bfloat16 GEMMs reduce split-K partials in float32, as the reference's
     # dense accumulates (set here: the port's modules change no global state)
@@ -1584,6 +1832,7 @@ def main() -> int:
                                                        max_err, cuda_ms, device_ms, cold_ms)
     paper_comparison(card, dev, fields, cuda_ms, device_ms)
     telemetry_phase(card, dev, serving, fields["Hurricane-like smooth"])
+    tune_phase(card, dev, serving, fields["Hurricane-like smooth"])
     del serving
     pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
     for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10

@@ -11,14 +11,21 @@ Three routes, bit-identical in containers and reconstructions:
 * ``use_kernels=True`` (the port's default), ``kernel_mode="fused"``: the
   fused kernels (``kernels/ops.py``) -- K4 in paper mode, plain
   ``dual_quantize`` + K5 in strict mode, K6 to decompress.
-  ``kernel_mode="auto"`` resolves to ``"fused"`` (the reference's tuner is
-  not ported).
 * ``use_kernels=True``, ``kernel_mode="staged"``: one kernel per stage, as
   ``repro/core/fz.py:_stages`` picks them -- K1 (paper mode) or plain
   ``dual_quantize`` (strict mode), K2 + torch-op compaction, and K3 to
   unshuffle; the codes go through device memory between the stages.
 * ``use_kernels=False``: the plain stages of ``core.quant``, ``core.shuffle``
   and ``core.encode`` -- the oracle the tests and ``chip_smoke.py`` use.
+
+``kernel_mode="auto"`` (the default) resolves at every public entry point,
+before the route is chosen, through the tuner (:mod:`repro_torch.tune`), as the
+reference's ``_resolved`` does: the cached winner for the call's device,
+``fz.<direction>``, size bucket and dtype, else the static fallback (fused,
+then staged, then reference, on the card and on the CPU; ``reference`` means
+``use_kernels=False``, which the tuner never names on the card). Internal
+callers that bypass the entry points take ``"auto"`` as ``"fused"``, the
+fallback's first route.
 
 For CPU tensors the kernel wrappers run their plain versions. This differs
 from the reference on purpose: there ``use_kernels`` defaults to False. The
@@ -27,7 +34,7 @@ when no card is available.
 
 Telemetry (:mod:`repro_torch.obs`), as the reference wires it: each public
 entry point opens an ``fz.<op>`` span (``n=``/``rows=`` and ``path=`` the
-route: ``reference|staged|fused``) and counts one ``fz_dispatches{op,path}``
+resolved route: ``reference|staged|fused``) and counts one ``fz_dispatches{op,path}``
 a call, with the container's ``fz_raw_bytes`` / ``fz_wire_bytes`` taken from
 shapes (no device read). The batch forms are one dispatch for all their
 rows, which is what lets the pool's ``*_dispatches`` and the fz counters
@@ -45,6 +52,7 @@ must not perturb the dispatch accounting they audit. ``to_bytes`` /
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import struct
 from typing import Any
@@ -56,6 +64,7 @@ from .. import obs
 from ..device import resolve_device
 from ..kernels import ops
 from ..obs import spans
+from ..tune import dispatch as _tune
 from . import encode as enc
 from . import entropy as ent
 from . import quant, shuffle
@@ -73,7 +82,7 @@ class FZConfig:
     outlier_frac: float = 1 / 256  # exact-outlier channel capacity fraction
     exact_outliers: bool = True    # strict error bound; False = paper-faithful
     use_kernels: bool = True       # route through the CUDA kernels
-    kernel_mode: str = "auto"      # "auto" (= "fused") | "fused" | "staged"
+    kernel_mode: str = "auto"      # "auto" (tuned, repro_torch.tune) | "fused" | "staged"
 
     def __post_init__(self):
         if self.kernel_mode not in ("auto", "fused", "staged"):
@@ -178,8 +187,30 @@ def resolve_eb(data: torch.Tensor, cfg: FZConfig) -> torch.Tensor:
 
 
 def _fused(cfg: FZConfig) -> bool:
-    """True for the fused kernel route; ``"auto"`` resolves to ``"fused"``."""
+    """True for the fused kernel route; ``"auto"`` that no entry point resolved
+    (an internal caller) is fused, the static fallback's first route."""
     return cfg.use_kernels and cfg.kernel_mode != "staged"
+
+
+@functools.lru_cache(maxsize=256)      # a replace costs microseconds on host-bound paths
+def _with_impl(cfg: FZConfig, impl: str) -> FZConfig:
+    """``cfg`` on one route: ``"reference"`` is the plain route."""
+    if impl == "reference":
+        return dataclasses.replace(cfg, use_kernels=False, kernel_mode="staged")
+    return dataclasses.replace(cfg, kernel_mode=impl)
+
+
+def _resolved(cfg: FZConfig, direction: str, n: int, dtype_name: str,
+              device: torch.device) -> FZConfig:
+    """Resolve ``kernel_mode="auto"`` to a concrete route for this call.
+
+    Called by every public entry point before the route is chosen. The tuned
+    winner comes from :func:`repro_torch.tune.resolve_fz` (cache hit) or its
+    static fallback (cache miss): fused, staged, reference.
+    """
+    if not (cfg.use_kernels and cfg.kernel_mode == "auto"):
+        return cfg
+    return _with_impl(cfg, _tune.resolve_fz(direction, n, dtype_name, device))
 
 
 def _ref_quant(data, eb, *, code_mode, outlier_capacity):
@@ -251,6 +282,7 @@ def _eb_tensor(eb_abs, device: torch.device) -> torch.Tensor:
 def compress(data, cfg: FZConfig, *, device="cuda") -> FZCompressed:
     """Error-bounded lossy compression of a 1-3D float array."""
     x, dtype_name = _as_input(data, resolve_device(device))
+    cfg = _resolved(cfg, "compress", x.numel(), dtype_name, x.device)
     with _metered(obs.span("fz.compress", n=x.numel(), path=_path(cfg))) as s:
         out = _compress_core(x, resolve_eb(x, cfg), cfg, dtype_name)
         _count_dispatch(s, "compress", out)
@@ -260,10 +292,18 @@ def compress(data, cfg: FZConfig, *, device="cuda") -> FZCompressed:
 def compress_with_eb(data, eb_abs, cfg: FZConfig, *, device="cuda") -> FZCompressed:
     """Compress against a caller-supplied absolute error bound."""
     x, dtype_name = _as_input(data, resolve_device(device))
+    cfg = _resolved(cfg, "compress", x.numel(), dtype_name, x.device)
     with _metered(obs.span("fz.compress", n=x.numel(), path=_path(cfg))) as s:
         out = _compress_core(x, _eb_tensor(eb_abs, x.device), cfg, dtype_name)
         _count_dispatch(s, "compress", out)
     return out
+
+
+def _compress_unmetered(data: torch.Tensor, cfg: FZConfig) -> FZCompressed:
+    """``compress`` on the data's device without span or dispatch counter (the
+    tuner's runners, as the reference's use its ``_compress_jit``)."""
+    x, dtype_name = _as_input(data, data.device)
+    return _compress_core(x, resolve_eb(x, cfg), cfg, dtype_name)
 
 
 def _compress_core(x: torch.Tensor, eb: torch.Tensor, cfg: FZConfig,
@@ -290,6 +330,7 @@ def _compress_core(x: torch.Tensor, eb: torch.Tensor, cfg: FZConfig,
 def decompress(c: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor:
     """Inverse pipeline: decode -> bit-unshuffle -> inverse Lorenzo -> dequantize."""
     c = c.to(resolve_device(device))
+    cfg = _resolved(cfg, "decompress", c.n, c.dtype_name, c.payload.device)
     with _metered(obs.span("fz.decompress", n=c.n, path=_path(cfg))) as s:
         out = _decompress(c, cfg)
         _count_dispatch(s, "decompress")
@@ -299,7 +340,8 @@ def decompress(c: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor
 def decompress_unmetered(c: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor:
     """``decompress`` without span or dispatch counter, for the error-bound
     sentinels' sampled checks (the same computation, bit-identical output)."""
-    return _decompress(c.to(resolve_device(device)), cfg)
+    c = c.to(resolve_device(device))
+    return _decompress(c, _resolved(cfg, "decompress", c.n, c.dtype_name, c.payload.device))
 
 
 def _decompress(c: FZCompressed, cfg: FZConfig) -> torch.Tensor:
@@ -339,6 +381,7 @@ def compress_batch_with_eb(pages_flat, eb_abs, cfg: FZConfig, *,
     if x.ndim < 2 or x.shape[0] == 0:
         raise ValueError(f"compress_batch_with_eb takes a non-empty leading batch "
                          f"dimension, got shape {tuple(x.shape)}")
+    cfg = _resolved(cfg, "compress", x[0].numel(), _dtype_name(x), x.device)
 
     def run():
         eb = _eb_tensor(eb_abs, x.device)
@@ -360,6 +403,7 @@ def decompress_batch(comp: FZCompressed, cfg: FZConfig, *, device="cuda") -> tor
     comp = comp.to(resolve_device(device))
     if comp.nnz_blocks.ndim != 1:
         raise ValueError("decompress_batch takes a container stacked along a batch dimension")
+    cfg = _resolved(cfg, "decompress", comp.n, comp.dtype_name, comp.payload.device)
 
     def run():
         return torch.stack([

@@ -346,14 +346,24 @@ flash_decode_combine(const float* __restrict__ pm, const float* __restrict__ pnu
   }
 }
 
+// Positions a stage holds for rows of nv 16-byte vectors.
+inline int stage_chunk(int nv) {
+  return STAGE_BYTES / (nv * 16) < 32 ? STAGE_BYTES / (nv * 16) : 32;
+}
+
+// Dynamic shared bytes of the partials: two stages of K and V, or the
+// groups' merge where that is larger (ve: elements a 16-byte vector).
+inline size_t partials_smem(int chunk, int nv, int ve) {
+  const size_t stages = 4ull * chunk * nv * 16;
+  const size_t merge = sizeof(float) * (2ull * GROUPS + static_cast<size_t>(GROUPS) * nv * ve);
+  return stages > merge ? stages : merge;
+}
+
 template <typename T, bool VEC16, int DMAX>
 int launch_partials(const float* q, const void* k, const void* v, const int* length, int B,
                     int splits, const Geometry& g, float* m, float* num, float* den,
                     cudaStream_t s) {
-  const size_t stages = 4ull * g.chunk * g.nv * 16;
-  const size_t merge = sizeof(float) * (2ull * GROUPS + static_cast<size_t>(GROUPS) * g.nv *
-                                        Vec<T>::N);
-  const size_t smem = stages > merge ? stages : merge;
+  const size_t smem = partials_smem(g.chunk, g.nv, Vec<T>::N);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(flash_decode_partials<T, VEC16, DMAX>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -375,7 +385,7 @@ int launch(const float* q, const void* k, const void* v, const int* length, int 
   g.T_tiles = T_tiles; g.tile = tile; g.KVH = KVH; g.G = G; g.D = D;
   g.tps = (T_tiles + splits - 1) / splits;
   g.nv = (D + VE - 1) / VE;
-  g.chunk = STAGE_BYTES / (g.nv * 16) < 32 ? STAGE_BYTES / (g.nv * 16) : 32;
+  g.chunk = stage_chunk(g.nv);
   g.k_b = k_b; g.k_t = k_t; g.v_b = v_b; g.v_t = v_t;
   // 16-byte copies need 16-byte rows, strides and bases
   const long long align = (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) |
@@ -415,6 +425,17 @@ const char* fz_error_string(int code) {
 // (m, den, num) of every split.
 long long fz_flash_decode_scratch_floats(int B, int KVH, int G, int D, int splits) {
   return splits > 1 ? static_cast<long long>(splits) * B * KVH * G * (D + 2) : 0;
+}
+
+// Dynamic shared bytes that fz_flash_decode sets for its partials at head
+// size D, and for the combine of `splits` splits.
+long long fz_flash_decode_smem(int is_bf16, int D) {
+  const int ve = is_bf16 ? 8 : 4, nv = (D + ve - 1) / ve;
+  return static_cast<long long>(fd::partials_smem(fd::stage_chunk(nv), nv, ve));
+}
+
+long long fz_flash_decode_combine_smem(int splits) {
+  return static_cast<long long>(sizeof(float) * splits);
 }
 
 // K7. q: f32 (B, KVH, G, D) contiguous, pre-scaled by D^-0.5. k, v: f32 or

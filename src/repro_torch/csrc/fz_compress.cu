@@ -318,8 +318,7 @@ int fz_fused_compress(const void* x, int is_bf16, int ndim, long long d0, long l
   const int esize = is_bf16 ? 2 : 4, vec = 16 / esize;
   const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(x) % 16) / esize;
   const fz::Windows win = fz::plan_windows(ndim == 3 ? 4 : ndim, row, plane, vec, mis);
-  const int words = win.chunks * vec;
-  const size_t smem = sizeof(unsigned) * (words + words / 16 + 1);
+  const size_t smem = fz::window_smem(win, vec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FZ_K4(BF, ND)                                                                    \
   return fz::launch(fz::WindowCodes<BF, ND>{x, eb, n, row, plane, rows, zigzag, win}, smem, \
@@ -333,6 +332,16 @@ int fz_fused_compress(const void* x, int is_bf16, int ndim, long long d0, long l
   if (ndim == 2) FZ_K4(false, 2);
   FZ_K4(false, 3);
 #undef FZ_K4
+}
+
+// Dynamic shared bytes that fz_fused_compress sets for this data, its
+// element 0 `mis` elements past a 16-byte boundary.
+long long fz_fused_compress_smem(int is_bf16, int ndim, long long d0, long long d1, long long d2,
+                                 int mis) {
+  const int vec = is_bf16 ? 8 : 4;
+  const int row = static_cast<int>(ndim == 3 ? d2 : d1), plane = static_cast<int>(d1 * d2);
+  return static_cast<long long>(
+      fz::window_smem(fz::plan_windows(ndim == 3 ? 4 : ndim, row, plane, vec, mis), vec));
 }
 
 // K5. codes: u16[n_tiles * 4096]. payload: every block written (zero past

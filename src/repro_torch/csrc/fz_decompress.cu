@@ -280,18 +280,25 @@ scan_columns(unsigned* q, int len, long long inner, long long strips, int stash,
   }
 }
 
+// Dynamic shared bytes of a column pass over columns of `len`: the strip's
+// rows where they fit in STASH_BYTES, else none (the rows are read again).
+inline size_t columns_smem(int len) {
+  const size_t smem = static_cast<size_t>(len) * 32 * sizeof(unsigned);
+  return smem <= static_cast<size_t>(STASH_BYTES) ? smem : 0;
+}
+
 template <bool DEQ>
 int launch_columns(unsigned* q, int len, long long inner, long long outer, const float* eb,
                    cudaStream_t s) {
   const long long strips = (inner + 31) / 32;
-  const size_t smem = static_cast<size_t>(len) * 32 * sizeof(unsigned);
-  const int stash = smem <= static_cast<size_t>(STASH_BYTES);
+  const size_t smem = columns_smem(len);
+  const int stash = smem > 0;
   if (stash && smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         scan_columns<DEQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, STASH_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  scan_columns<DEQ><<<static_cast<unsigned>(outer * strips), THREADS, stash ? smem : 0, s>>>(
+  scan_columns<DEQ><<<static_cast<unsigned>(outer * strips), THREADS, smem, s>>>(
       q, len, inner, strips, stash, eb);
   return static_cast<int>(cudaGetLastError());
 }
@@ -309,6 +316,12 @@ const char* fz_error_string(int code) {
 // places a tile, int32).
 long long fz_decompress_scratch_words(long long n_tiles, int with_outliers) {
   return 2 * n_tiles + 1 + (with_outliers ? (n_tiles * (1 + fz::BIN_CAP) + 1) / 2 : 0);
+}
+
+// Dynamic shared bytes that a column pass of fz_fused_decompress over columns
+// of `len` sets.
+long long fz_scan_columns_smem(int len) {
+  return static_cast<long long>(fz::columns_smem(len));
 }
 
 // K6. dims (d0, d1, d2) of `ndim` dims, none of size 1 unless n == 1,

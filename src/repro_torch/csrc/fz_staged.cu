@@ -355,8 +355,7 @@ int launch_tiles(const void* x, int n, int row, int plane, int rows, const float
                  int zigzag, int mis, uint16_t* codes, cudaStream_t stream) {
   constexpr int VEC = WindowCodes<BF16, ND>::VEC;
   const Windows win = plan_windows(ND == 3 ? MAX_WINDOWS : ND, row, plane, VEC, mis);
-  const int words = win.chunks * VEC;
-  const size_t smem = sizeof(unsigned) * (words + words / 16 + 1);
+  const size_t smem = window_smem(win, VEC);
   const cudaError_t e = allow_smem(lorenzo_quant_tiles<BF16, ND>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   lorenzo_quant_tiles<BF16, ND><<<(n + TILE - 1) / TILE, THREADS, smem, stream>>>(
@@ -364,11 +363,11 @@ int launch_tiles(const void* x, int n, int row, int plane, int rows, const float
   return static_cast<int>(cudaGetLastError());
 }
 
-// The walk over `planes` planes of `plane` elements (IN 2: rows of `row`);
-// returns -1 without launching where two windows do not fit in shared memory.
-template <bool BF16, int IN>
-int launch_walk(const void* x, int planes, int plane, int row, const float* eb, int zigzag,
-                int mis, uint16_t* codes, cudaStream_t stream) {
+// The walk's layout over `planes` planes of `plane` elements (IN 2: rows of
+// `row`), all but its chunk, and in *smem its dynamic shared bytes: two window
+// buffers and the staging of one window of `vec`-element chunks.
+template <int IN>
+Walk plan_walk(int planes, int plane, int row, int mis, int vec, size_t* smem) {
   Walk w{};
   w.plane = plane;
   w.row = row;
@@ -383,9 +382,18 @@ int launch_walk(const void* x, int planes, int plane, int row, const float* eb, 
     const int word = w.lead + e;
     w.col[e + 1] = static_cast<int>(sizeof(unsigned)) * (word + (word >> 4));
   }
-  constexpr int VEC = BF16 ? 8 : 4;
-  const size_t stage_chunks = words / VEC + 2;        // a window's 16-byte chunks, at most
-  const size_t smem = 2 * sizeof(unsigned) * w.stride + 16 * stage_chunks;
+  const size_t stage_chunks = words / vec + 2;        // a window's 16-byte chunks, at most
+  *smem = 2 * sizeof(unsigned) * w.stride + 16 * stage_chunks;
+  return w;
+}
+
+// The walk over `planes` planes of `plane` elements (IN 2: rows of `row`);
+// returns -1 without launching where two windows do not fit in shared memory.
+template <bool BF16, int IN>
+int launch_walk(const void* x, int planes, int plane, int row, const float* eb, int zigzag,
+                int mis, uint16_t* codes, cudaStream_t stream) {
+  size_t smem = 0;
+  Walk w = plan_walk<IN>(planes, plane, row, mis, BF16 ? 8 : 4, &smem);
   if (smem > MAX_SMEM) return -1;
   const auto kernel = lorenzo_quant_walk<BF16, IN>;
   cudaError_t e = allow_smem(kernel, smem);
@@ -402,6 +410,20 @@ int launch_walk(const void* x, int planes, int plane, int row, const float* eb, 
   const int grid = w.runs * ((planes + w.chunk - 1) / w.chunk);
   kernel<<<grid, THREADS, smem, stream>>>(x, eb, zigzag, w, codes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch lorenzo_quant makes: the walk where the dims walk and two
+// windows fit (true), else the tile step; in *smem its dynamic shared bytes.
+inline bool lorenzo_quant_plan(int is_bf16, int ndim, int d0, int d1, int d2, int mis,
+                               size_t* smem) {
+  const int vec = is_bf16 ? 8 : 4;
+  const int row = ndim == 3 ? d2 : d1, plane = d1 * d2;
+  *smem = 0;
+  if (ndim == 3 && plane >= TILE) plan_walk<2>(d0, plane, row, mis, vec, smem);
+  if (ndim == 2 && row >= TILE) plan_walk<1>(d0, row, row, mis, vec, smem);
+  if (*smem > 0 && *smem <= MAX_SMEM) return true;
+  *smem = window_smem(plan_windows(ndim == 3 ? MAX_WINDOWS : ndim, row, plane, vec, mis), vec);
+  return false;
 }
 
 template <bool BF16>
@@ -438,6 +460,24 @@ int fz_lorenzo_quant(const void* x, int is_bf16, int ndim, long long d0, long lo
   const int a = static_cast<int>(d0), b = static_cast<int>(d1), c = static_cast<int>(d2);
   return is_bf16 ? fz::lorenzo_quant<true>(x, ndim, a, b, c, eb, zigzag, codes, s)
                  : fz::lorenzo_quant<false>(x, ndim, a, b, c, eb, zigzag, codes, s);
+}
+
+// Dynamic shared bytes that fz_lorenzo_quant sets for this data, its element
+// 0 `mis` elements past a 16-byte boundary (the walk's or the tile step's).
+long long fz_lorenzo_quant_smem(int is_bf16, int ndim, long long d0, long long d1, long long d2,
+                                int mis) {
+  size_t smem = 0;
+  fz::lorenzo_quant_plan(is_bf16, ndim, static_cast<int>(d0), static_cast<int>(d1),
+                         static_cast<int>(d2), mis, &smem);
+  return static_cast<long long>(smem);
+}
+
+// 1 where fz_lorenzo_quant launches the walk for this data, 0 for the tile step.
+long long fz_lorenzo_quant_walks(int is_bf16, int ndim, long long d0, long long d1,
+                                 long long d2, int mis) {
+  size_t smem = 0;
+  return fz::lorenzo_quant_plan(is_bf16, ndim, static_cast<int>(d0), static_cast<int>(d1),
+                                static_cast<int>(d2), mis, &smem);
 }
 
 // K2. codes: u16[n_tiles * 4096], 16-byte aligned. shuffled: u16[n_tiles *

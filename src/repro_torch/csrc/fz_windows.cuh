@@ -264,4 +264,11 @@ inline Windows plan_windows(int count, int row, int plane, int vec, int mis) {
   return w;
 }
 
+// Dynamic shared bytes of a CTA holding the windows `w` of `vec`-element
+// chunks: one pad word every 16, plus one.
+inline size_t window_smem(const Windows& w, int vec) {
+  const size_t words = static_cast<size_t>(w.chunks) * vec;
+  return sizeof(unsigned) * (words + words / 16 + 1);
+}
+
 }  // namespace fz

@@ -14,6 +14,8 @@ Nothing is compiled when this package is imported.
 """
 from __future__ import annotations
 
+import importlib
+
 from .bitshuffle_flag import bitshuffle_flag, bitunshuffle_tiles
 from .flash_decode import flash_decode_partials
 from .fused_compress import fused_compress, fused_shuffle_encode
@@ -39,3 +41,9 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+
+
+def module(name: str):
+    """A wrapper module by name, for its spec builders and plan helpers (the
+    package's attribute of the same name is the wrapper function)."""
+    return importlib.import_module(f"{__name__}.{name}")

@@ -7,17 +7,36 @@ nonzero flag per 8-word block uint8 (n_tiles, 512)). K3 replaces
 
 For a CPU tensor a wrapper runs its plain version (``kernels/ref.py``); for a
 CUDA tensor it launches the kernel on the current stream or raises. Each
-wrapper counts its launches in ``<wrapper>.launches``.
+wrapper counts its launches in ``<wrapper>.launches`` and registers the spec
+builder of its launch (one CTA a tile, static shared memory only).
 """
 from __future__ import annotations
 
 import torch
 
+from ..analysis.kernelspec import KernelSpec, register_spec
 from . import build, ref
-from .fused_compress import MAX_N, TILE
+from .fused_compress import MAX_N, THREADS, TILE
 
 _SOURCE = "fz_staged.cu"
 BLOCKS_PER_TILE = ref.BLOCKS_PER_TILE
+SHUFFLE_MIN_CTAS = 8          # __launch_bounds__ minimum of K2
+
+
+@register_spec("bitshuffle_flag")
+def bitshuffle_flag_spec(n_tiles: int, point: str = "") -> KernelSpec:
+    """K2 (``bitshuffle_flag_tiles``)."""
+    return KernelSpec(name="bitshuffle_flag", module=_SOURCE, symbol="bitshuffle_flag_tiles",
+                      grid=(int(n_tiles),), threads=THREADS, min_ctas=SHUFFLE_MIN_CTAS,
+                      point=point or f"{n_tiles} tiles")
+
+
+@register_spec("bitunshuffle_tiles")
+def bitunshuffle_tiles_spec(n_tiles: int, point: str = "") -> KernelSpec:
+    """K3 (``bitunshuffle_tiles_k``)."""
+    return KernelSpec(name="bitunshuffle_tiles", module=_SOURCE, symbol="bitunshuffle_tiles_k",
+                      grid=(int(n_tiles),), threads=THREADS,
+                      point=point or f"{n_tiles} tiles")
 
 
 def _check_tiles(tiles: torch.Tensor, name: str) -> int:

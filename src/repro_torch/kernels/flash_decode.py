@@ -21,12 +21,18 @@ padded.
 Entry points (``device`` defaults to the card, as everywhere in the port):
 ``decode_partials``, ``decode_partials_pages``, ``flash_decode``; and
 ``combine_partials`` to normalize partials.
+
+Both launches register their spec builders here (``flash_decode``,
+``flash_decode.combine``); :func:`specs` lists a call's launches, from
+:func:`split_count`, with the dynamic shared bytes asked of the C side on the
+card.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..analysis.kernelspec import KernelSpec, register_spec
 from ..device import resolve_device
 from . import build, ref
 
@@ -34,6 +40,7 @@ NEG_INF = ref.NEG_INF    # the reference's finite -inf stand-in
 KV_TILE = 128            # default KV positions a tile on the contiguous entry
 TARGET_CTAS = 264        # about two CTAs on each of the H100's 132 SMs
 _SOURCE = "flash_decode.cu"
+THREADS, COMBINE_THREADS = 256, 128
 
 
 def split_count(B: int, KVH: int, n_tiles: int) -> int:
@@ -43,6 +50,39 @@ def split_count(B: int, KVH: int, n_tiles: int) -> int:
     want = max(1, min(n_tiles, -(-TARGET_CTAS // (B * KVH))))
     tps = -(-n_tiles // want)
     return -(-n_tiles // tps)
+
+
+@register_spec("flash_decode")
+def partials_spec(B: int, n_tiles: int, KVH: int, G: int, D: int, dtype: str = "bfloat16",
+                  point: str = "") -> KernelSpec:
+    """The split partials: grid (splits, KVH, B)."""
+    q = (_SOURCE, "fz_flash_decode_smem", (int(dtype == "bfloat16"), D))
+    return KernelSpec(
+        name="flash_decode", module=_SOURCE, symbol="flash_decode_partials",
+        grid=(split_count(B, KVH, n_tiles), KVH, B), threads=THREADS,
+        dynamic_smem=build.query(*q),
+        point=point or f"B {B} KVH {KVH} G {G} D {D} {n_tiles} tiles {dtype}", c_query=q)
+
+
+@register_spec("flash_decode.combine")
+def combine_spec(B: int, KVH: int, G: int, splits: int, point: str = "") -> KernelSpec:
+    """The combine of the splits: grid (G, KVH, B)."""
+    q = (_SOURCE, "fz_flash_decode_combine_smem", (int(splits),))
+    return KernelSpec(
+        name="flash_decode.combine", module=_SOURCE, symbol="flash_decode_combine",
+        grid=(G, KVH, B), threads=COMBINE_THREADS, dynamic_smem=build.query(*q),
+        point=point or f"B {B} KVH {KVH} G {G} {splits} splits", c_query=q)
+
+
+def specs(B: int, n_tiles: int, KVH: int, G: int, D: int, dtype: str = "bfloat16",
+          point: str = "") -> list[KernelSpec]:
+    """The launches of one call of K7: the partials, and the combine where a row
+    has more than one split."""
+    out = [partials_spec(B, n_tiles, KVH, G, D, dtype, point)]
+    splits = out[0].grid[0]
+    if splits > 1:
+        out.append(combine_spec(B, KVH, G, splits, point))
+    return out
 
 
 def _strides(t: torch.Tensor, KVH: int, D: int) -> tuple[int, int]:

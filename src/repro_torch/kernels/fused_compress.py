@@ -9,18 +9,62 @@ the launch; K5 writes all of its payload itself (zero past ``nnz``).
 For a CPU tensor a wrapper runs its plain version (``kernels/ref.py``); for a
 CUDA tensor it launches the kernel on the current stream or raises. Each
 wrapper counts its launches in ``<wrapper>.launches``.
+
+Each launch registers its :class:`~repro_torch.analysis.kernelspec.KernelSpec`
+builder here (``fused_compress``, ``fused_shuffle_encode``). K4's dynamic
+shared bytes are what the C side's window plan sets (``fz_windows.cuh``),
+asked of the library on the card (``fz_fused_compress_smem``).
 """
 from __future__ import annotations
 
 import torch
 
+from ..analysis.kernelspec import KernelSpec, register_spec
 from . import build, ref
 
 TILE = ref.TILE
 FLAG_WORDS_PER_TILE = 16
+THREADS = 256                 # threads a CTA of K1-K4 and K6 (fz_common.cuh)
 _SOURCE = "fz_compress.cu"
 MAX_N = 2**31 - TILE          # the kernels index the stream in int32
 _CODE_MODES = {"sign_mag": 0, "zigzag": 1}
+WINDOW_MIN_CTAS = 5           # __launch_bounds__ minimum of K4 and K1's tile step
+K5_THREADS = THREADS // 2     # two groups a thread
+K5_MIN_CTAS = 16
+
+
+def dims3(shape) -> tuple[int, int, int]:
+    """(d0, d1, d2) of a 1-3D shape, padded with ones as the launches take it."""
+    d = [int(s) for s in shape] + [1] * (3 - len(shape))
+    return d[0], d[1], d[2]
+
+
+def query_args(shape, dtype: str) -> tuple:
+    """The arguments of K4's and K1's C queries for data of ``shape``, element 0
+    on a 16-byte boundary."""
+    return int(dtype == "bfloat16"), len(shape), *dims3(shape), 0
+
+
+@register_spec("fused_compress")
+def fused_compress_spec(shape, dtype: str = "float32", point: str = "") -> KernelSpec:
+    """K4 (``encode_tiles``): one CTA a tile, the windows in dynamic shared memory."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    q = (_SOURCE, "fz_fused_compress_smem", query_args(shape, dtype))
+    return KernelSpec(
+        name="fused_compress", module=_SOURCE, symbol="encode_tiles",
+        grid=(-(-n // TILE),), threads=THREADS, dynamic_smem=build.query(*q),
+        min_ctas=WINDOW_MIN_CTAS, point=point or f"{tuple(shape)} {dtype}", c_query=q)
+
+
+@register_spec("fused_shuffle_encode")
+def fused_shuffle_encode_spec(n_tiles: int, point: str = "") -> KernelSpec:
+    """K5 (``shuffle_encode_tiles``): one CTA a tile, static shared memory only."""
+    return KernelSpec(
+        name="fused_shuffle_encode", module=_SOURCE, symbol="shuffle_encode_tiles",
+        grid=(int(n_tiles),), threads=K5_THREADS, min_ctas=K5_MIN_CTAS,
+        point=point or f"{n_tiles} tiles")
 
 
 def _code_mode(code_mode: str) -> int:

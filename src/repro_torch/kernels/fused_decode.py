@@ -11,15 +11,79 @@ along them is the identity.
 
 For CPU tensors the wrapper runs the plain version (``kernels/ref.py``); for
 CUDA tensors it launches the kernels on the current stream or raises.
+
+Each of the call's three launch sites registers its spec builder here
+(``fused_decompress.bin_residuals``, ``.decode_scan_rows``,
+``.scan_columns``); :func:`specs` lists the launches of one call, the column
+passes from :func:`column_passes`.
 """
 from __future__ import annotations
 
 import torch
 
+from ..analysis.kernelspec import KernelSpec, register_spec
 from . import build, ref
-from .fused_compress import _check_eb, _code_mode, FLAG_WORDS_PER_TILE, MAX_N, TILE
+from .fused_compress import _check_eb, _code_mode, FLAG_WORDS_PER_TILE, MAX_N, THREADS, TILE
 
 _SOURCE = "fz_decompress.cu"
+ROWS_MIN_CTAS = 4             # __launch_bounds__ minimum of decode_scan_rows
+BIN_THREADS = 256
+
+
+def column_passes(shape) -> list[tuple[int, int, int]]:
+    """(len, inner, outer) of each column pass after the row pass, in launch
+    order: every axis but the last of the shape without its axes of size 1,
+    the last pass on axis 0 (``fz_fused_decompress``)."""
+    dims = [int(s) for s in shape if s != 1] or [1]
+    out = []
+    for a in range(len(dims) - 2, -1, -1):
+        outer = inner = 1
+        for b in dims[:a]:
+            outer *= b
+        for b in dims[a + 1:]:
+            inner *= b
+        out.append((dims[a], inner, outer))
+    return out
+
+
+@register_spec("fused_decompress.bin_residuals")
+def bin_residuals_spec(n_out: int, point: str = "") -> KernelSpec:
+    """The residual binning pass (outlier slots only)."""
+    return KernelSpec(name="fused_decompress.bin_residuals", module=_SOURCE,
+                      symbol="bin_residuals", grid=(-(-int(n_out) // BIN_THREADS),),
+                      threads=BIN_THREADS, point=point or f"{n_out} outlier slots")
+
+
+@register_spec("fused_decompress.decode_scan_rows")
+def decode_scan_rows_spec(n_tiles: int, point: str = "") -> KernelSpec:
+    """The fused decode + last-axis prefix: one CTA a tile, static shared memory."""
+    return KernelSpec(name="fused_decompress.decode_scan_rows", module=_SOURCE,
+                      symbol="decode_scan_rows", grid=(int(n_tiles),), threads=THREADS,
+                      min_ctas=ROWS_MIN_CTAS, point=point or f"{n_tiles} tiles")
+
+
+@register_spec("fused_decompress.scan_columns")
+def scan_columns_spec(length: int, inner: int, outer: int, point: str = "") -> KernelSpec:
+    """A column pass: one CTA a strip of 32 columns, the strip's rows in dynamic
+    shared memory where they fit (``fz_scan_columns_smem``)."""
+    q = (_SOURCE, "fz_scan_columns_smem", (int(length),))
+    return KernelSpec(name="fused_decompress.scan_columns", module=_SOURCE,
+                      symbol="scan_columns", grid=(int(outer) * -(-int(inner) // 32),),
+                      threads=THREADS, dynamic_smem=build.query(*q),
+                      point=point or f"columns of {length}, inner {inner}, outer {outer}",
+                      c_query=q)
+
+
+def specs(shape, n_out: int = 0, point: str = "") -> list[KernelSpec]:
+    """The launches of one call of K6 on ``shape`` with ``n_out`` outlier slots."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    point = point or f"{tuple(shape)}"
+    out = [bin_residuals_spec(n_out, point)] if n_out else []
+    out.append(decode_scan_rows_spec(-(-n // TILE), point))
+    out += [scan_columns_spec(*p, point=point) for p in column_passes(shape)]
+    return out
 
 
 def fused_decompress(bitflags: torch.Tensor, payload: torch.Tensor, eb: torch.Tensor, *,

@@ -10,14 +10,19 @@ The port of ``repro/serve/engine.py``. Two cache regimes:
     pages are compressed in place, preemption is compress-park, and
     ``ContinuousBatcher`` drives admit/step/preempt/resume. With
     ``PoolConfig.use_kernels`` (the default) decode keeps the page layout
-    and runs K7 (``decode_step_paged`` over ``PagePool.gather_pages``);
-    without it, decode runs the model's own step on the gathered contiguous
-    cache.
+    (``decode_step_paged`` over ``PagePool.gather_pages``); without it,
+    decode runs the model's own step on the gathered contiguous cache.
 
-PyTorch runs eagerly, so there is nothing to trace or cache per shape. Where
-the reference asks its tuner (``repro.tune``) whether paged decode should run
-the kernel, the port takes ``PoolConfig.use_kernels`` as it stands: the tuner
-is not ported (ROADMAP, queue 1 item 4).
+PyTorch runs eagerly, so there is nothing to trace or cache per shape. As the
+reference does (``repro/serve/engine.py:122-132``), the engine asks the tuner
+once, at construction, whether paged decode runs K7 or the plain partials:
+``tune.decode_attention_impl`` at the pool's per-sequence cache size
+(``attn_cache_elems(seq_capacity, n_kv_heads, head_dim)``) and type, on the
+engine's device -- the cached winner, else the kernel. The choice is
+``Engine.decode_attention`` (``"kernel"``, or on the CPU ``"jnp"``, the plain
+route; on the card the tuner never picks the plain route).
+``Engine.attention_workload`` is the tuning point of that choice with the
+engine's own geometry, so a pre-tune measures the paged route it serves.
 
 Telemetry, as the reference's: ``engine.prefill``, ``engine.decode_step``,
 ``engine.decode_step_paged``, ``engine.park``, ``engine.resume`` and
@@ -35,6 +40,8 @@ from .. import obs
 from ..core import fz
 from ..device import resolve_device
 from ..models import zoo
+from ..tune import dispatch as tune_dispatch
+from ..tune.impls import attention_geometry, attn_cache_elems
 from . import kvpool
 
 
@@ -45,7 +52,7 @@ class KVCompressionConfig:
     eb_mode: str = "rel"           # "rel" (per-leaf range) | "abs"
     min_leaf_size: int = 65_536
     use_kernels: bool = True       # the port's default: FZ on K4/K6
-    kernel_mode: str = "auto"      # "auto" (= "fused") | "fused" | "staged"
+    kernel_mode: str = "auto"      # "auto" (tuned, repro_torch.tune) | "fused" | "staged"
 
     def fz_config(self) -> fz.FZConfig:
         return fz.FZConfig(eb=self.eb, eb_mode=self.eb_mode, exact_outliers=False,
@@ -106,6 +113,21 @@ class Engine:
         self.device = resolve_device(device)
         self.kcfg = kv_compress or KVCompressionConfig()
         self.pool_cfg = pool
+        # paged decode attention, resolved once: the tuned winner, else K7
+        self.decode_attention = None
+        if pool is not None and pool.use_kernels:
+            _, n_attn, dtype, _ = self.attention_workload()
+            self.decode_attention = tune_dispatch.decode_attention_impl(
+                n_attn, dtype, self.device)
+
+    def attention_workload(self, batch: int = 2) -> tuple[str, int, str, dict]:
+        """``(op, n, dtype, geometry)``: the tuner's workload of this engine's
+        paged decode attention at ``batch`` lanes (``tune.ensure_tuned``)."""
+        cfg, pool = self.model.cfg, self.pool_cfg
+        geometry = attention_geometry(kvh=cfg.n_kv_heads, g=cfg.n_heads // cfg.n_kv_heads,
+                                      d=cfg.hd, page_size=pool.page_size, batch=batch)
+        return ("decode_attention", attn_cache_elems(pool.seq_capacity, cfg.n_kv_heads, cfg.hd),
+                pool.dtype, geometry)
 
     @property
     def paged_decode_enabled(self) -> bool:
@@ -130,7 +152,7 @@ class Engine:
         """One decode step on the page view (``PagePool.gather_pages``); returns
         ``(logits, (k_new, v_new))`` with the step's K/V (L, B, KVH, hd) for the
         pool append."""
-        use_kernels = self.pool_cfg is None or self.pool_cfg.use_kernels
+        use_kernels = self.pool_cfg is None or self.decode_attention == "kernel"
         with obs.span("engine.decode_step_paged"):
             return self.model.decode_paged(self.params, pages, tokens,
                                            use_kernels=use_kernels)

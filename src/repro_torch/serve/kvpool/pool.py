@@ -35,8 +35,9 @@ the error are the one device sync telemetry adds.
 Deliberate differences from the reference:
 
 * ``PoolConfig.use_kernels`` defaults to True, as the port's ``FZConfig``
-  does: FZ runs on K4/K6 and the engine's decode attention on K7.
-  ``kernel_mode="auto"`` means ``"fused"`` (the tuner is not ported).
+  does: FZ runs on the kernel routes (``kernel_mode="auto"`` resolved by the
+  tuner, ``repro_torch.tune``: K4/K6 untuned) and the engine's decode
+  attention on K7 unless the tuner measured the plain route faster.
 * The slab is updated in place (the reference rebuilds its immutable
   array); ``page_data`` returns a copy, never a view of the slab.
 """
@@ -84,7 +85,7 @@ class PoolConfig:
     # (the engine's serve loop then decodes through gather_pages). Default
     # True, as the port's FZConfig; False is the plain route, the oracle.
     use_kernels: bool = True
-    kernel_mode: str = "auto"      # "auto" (= "fused") | "fused" | "staged"
+    kernel_mode: str = "auto"      # "auto" (tuned, repro_torch.tune) | "fused" | "staged"
     exact_outliers: bool = False   # paper mode, as serve.KVCompressionConfig
     dtype: str = "bfloat16"
     # "radix" shares refcounted pages (CoW on write), "copy" matches but
