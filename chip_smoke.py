@@ -145,7 +145,34 @@ Phases (each prints its own lines):
      the tuned cache, "auto" at the timing shape (strict and paper) equals
      the explicit route the cache names, bit for bit, and ``fz_dispatches``
      names it; an ``Engine`` chooses the kernel, and a short trace launches
-     K7 once per layer per decode step.
+     K7 once per layer per decode step;
+  14. the gradient wire and checkpoints (``repro_torch.dist``, ``repro_torch.ckpt``),
+     after phase 8's model is freed. Yi-6B's gradient tree at full width with
+     its 32 layers cut to 2 (870,338,560 float32 elements a pod), seeded
+     normal gradients from a ``torch.Generator`` on the card, 2 pods inline,
+     rel eb 1e-4, paper mode. ``reduce_stacked`` on the kernel route (K4, K6)
+     over three error-feedback steps (the same gradients each step), bit for
+     bit against the plain route, then against ``reduce_stacked_bucketed`` at
+     4 MiB and 1 GiB buckets; the reference's bounds (one round within 2 eb
+     range of the exact mean, the two-round mean no worse); host-included ms
+     of each 4 MiB bucket hop, ms a step and raw-gradient GB/s, wire bytes;
+     K4 and K6 alone at 262,144,000 elements against their bound. Layer 0's
+     wk, final_norm and a bypass leaf reduced on the card and on the CPU
+     route, bit for bit. NCCL at world size 1: the distributed barrier and
+     bucketed reduce equal the inline form at one pod bit for bit, and the
+     bytes handed to ``all_gather`` a bucket equal ``expected_cross_pod_bytes``.
+     ``flash_decode_shard`` at Yi-6B's decode geometry (B 4, H 32, KVH 4, D 128,
+     bf16, 832 positions in 4 shards, the last past every length): K7
+     partials combined by ``combine_shards`` within 2e-4 of the plain
+     attention, and the whole cache as one shard on NCCL equal to the
+     collective-free combine. A ``codec="fz"`` checkpoint of layer 0 of the
+     reduced tree (173,023,232 float32 elements; K5 to save, K6 to restore)
+     plus a bfloat16 leaf: save and restore seconds with the host entropy
+     stage split out, ``compression_report``'s ratio, max_err/eb within the
+     bound, the bf16 leaf exact, the wk leaf's file equal to the CPU port's.
+     Each path's launches of K4, K5, K6 and K7 are counted and must be above 0
+     where the path runs them; the ``kernels`` JSON gives each kernel's phase-14
+     launches as ``wire_launches``.
 
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
@@ -265,6 +292,15 @@ MAIN_FIELDS = [
 EBS = (1e-2, 1e-3, 1e-4)
 ZFP_RATES = (2, 4, 6, 8, 10, 12, 14, 16)   # the rate search of benchmarks/bench_rate_distortion.py
 TIMING_SHAPE = (100, 500, 500)
+# phase 14: Yi-6B's gradient tree at full width, its 32 layers cut to 2 (870,338,560
+# float32 elements a pod: embed and unembed 262,144,000 each), 2 pods inline
+WIRE_LAYERS, WIRE_PODS, WIRE_STEPS = 2, 2, 3
+WIRE_ELEMS = 870_338_560
+WIRE_BUCKETS = (4 << 20, 1 << 30)          # bucket_bytes: the default and one far larger
+# decode attention at Yi-6B's geometry (B, H, KVH, D), split in shards; the last
+# shard lies past every length
+FLASH_GEOMETRY, FLASH_POSITIONS, FLASH_SHARDS = (4, 32, 4, 128), 832, 4
+FLASH_LENGTHS = [600, 417, 208, 1]
 
 
 def say(phase, msg):
@@ -1067,6 +1103,367 @@ def telemetry_phase(card, dev, serving, x) -> None:
     say(12, f"telemetry phase done in {time.time() - t_phase:.1f} s")
 
 
+def wire_phase(card, dev) -> dict:
+    """Phase 14: the gradient wire (``repro_torch.dist``) and checkpoints
+    (``repro_torch.ckpt``) at Yi-6B's width. Returns each path's launches.
+    Raises on any failed check."""
+    import dataclasses
+    import gc
+    import socket
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import repro_torch as rt
+    from repro_torch import ckpt, configs, kernels, obs, pytree
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.core import fz as fz_mod
+    from repro_torch.dist import bucketed_reduce as bkt
+    from repro_torch.dist import compat
+    from repro_torch.dist import compressed_allreduce as car
+    from repro_torch.dist import flash_decode as fdp
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer
+    from repro_torch.models.attention import decode_attention
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    launches = {path: dict.fromkeys(kernels.WRAPPERS, 0)
+                for path in ("reduce", "bucketed", "nccl", "shard", "checkpoint")}
+
+    def drive(path, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        for name, count in kernels.launch_counts().items():
+            launches[path][name] += count
+        return out
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else (
+            t.view(torch.int32) if t.dtype == torch.float32 else t)
+
+    def same_tree(a, b, what):
+        la, lb = pytree.leaves_with_keys(a), pytree.leaves_with_keys(b)
+        if [k for k, _ in la] != [k for k, _ in lb]:
+            raise AssertionError(f"{what}: the trees' leaves differ")
+        for (k, x), (_, y) in zip(la, lb):
+            if x.shape != y.shape or not torch.equal(bits(x), bits(y.to(x.device))):
+                raise AssertionError(f"{what}: leaf {k} differs")
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # -- (a) Yi-6B's gradient tree at full width, cut in depth ---------------
+    cfg_m = dataclasses.replace(configs.get("yi-6b"), n_layers=WIRE_LAYERS)
+    abstract = pytree.tree_map(
+        lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"),
+        transformer.model_defs(cfg_m))
+    n_pod = sum(t.numel() for t in pytree.leaves(abstract))
+    if n_pod != WIRE_ELEMS:
+        raise AssertionError(f"the cut tree has {n_pod} elements a pod, not {WIRE_ELEMS}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = pytree.tree_map(lambda a: torch.randn((WIRE_PODS,) + tuple(a.shape), generator=gen,
+                                              device=dev), abstract)
+    torch.cuda.synchronize()
+    raw_bytes = 4 * n_pod * WIRE_PODS
+    say(14, f"gradient tree: Yi-6B at full width, {WIRE_LAYERS} stacked layers of 32, "
+            f"{n_pod:,} float32 elements a pod ({4 * n_pod / 1e9:.2f} GB), {WIRE_PODS} pods, "
+            f"{len(pytree.leaves(g))} leaves; {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+            f"allocated on the card")
+
+    # -- (b, c) barrier reduce (kernel route) against the plain route and the
+    # bucketed form, three steps of error feedback each, on the same gradients
+    gc_k = car.GradCompressionConfig(enabled=True)
+    routes = {"plain": (dataclasses.replace(gc_k, use_kernels=False), car.reduce_stacked)}
+    plans = {}
+    for bb in WIRE_BUCKETS:
+        cfg_b = dataclasses.replace(gc_k, overlap=True, bucket_bytes=bb)
+        plans[bb] = bkt.assign_buckets(abstract, cfg_b)
+        routes[f"bucketed {bb}"] = (cfg_b, lambda g_, e_, c_, p_=plans[bb]:
+                                    bkt.reduce_stacked_bucketed(g_, e_, c_, plan=p_))
+    eb = gc_k.eb
+    reduce_s, route_s = [], {}
+    for route, (cfg_o, reduce_o) in routes.items():
+        err_k = car.init_error_state(abstract, WIRE_PODS, gc_k)
+        err_o = car.init_error_state(abstract, WIRE_PODS, cfg_o)
+        reds = []              # the first two rounds, for the bounds
+        for step in range(WIRE_STEPS):
+            (red_k, err_k), sec = synced(lambda: drive("reduce", lambda: car.reduce_stacked(
+                g, err_k, gc_k)))
+            reduce_s.append(sec)
+            path = "bucketed" if route.startswith("bucketed") else None
+            (red_o, err_o), sec = synced(lambda: drive(path, lambda: reduce_o(g, err_o, cfg_o))
+                                         if path else reduce_o(g, err_o, cfg_o))
+            route_s.setdefault(route, []).append(sec)
+            same_tree(red_k, red_o, f"step {step}: reduced, kernel route vs {route}")
+            same_tree(err_k, err_o, f"step {step}: error state, kernel route vs {route}")
+            del red_o
+            if route == "plain" and step < 2:
+                reds.append(red_k)
+            del red_k
+        say(14, f"reduce_stacked on the kernel route == {route}, reduced tree and error state "
+                f"bit for bit over {WIRE_STEPS} steps")
+        if route == "plain":
+            # the reference's bounds: one round within 2 eb range of the exact
+            # mean, the mean of two rounds no worse (the same gradients each step)
+            worst1 = worst2 = 0.0
+            for key, gl in pytree.leaves_with_keys(g):
+                exact = car.pod_mean([gl[p] for p in range(WIRE_PODS)])
+                r1 = dict(pytree.leaves_with_keys(reds[0]))[key]
+                r2 = dict(pytree.leaves_with_keys(reds[1]))[key]
+                rng_ = float(gl.max() - gl.min())
+                e1 = float((r1 - exact).abs().max())
+                e2 = float(((r1 + r2) / 2 - exact).abs().max())
+                if e1 > 2 * eb * rng_ or e2 > e1 + 1e-7:
+                    raise AssertionError(f"{key}: one round {e1} (bound {2 * eb * rng_}), two "
+                                         f"rounds {e2}")
+                worst1, worst2 = max(worst1, e1 / (eb * rng_)), max(worst2, e2 / (eb * rng_))
+            say(14, f"error bounds hold on every leaf: max|reduced - exact mean| / (eb range) "
+                    f"{worst1:.4f} after one round (limit 2), {worst2:.4f} for the mean of two")
+            del reds
+        if route == f"bucketed {WIRE_BUCKETS[0]}":
+            # host-included time of each bucket hop on the final error state
+            plan, cfg_b = plans[WIRE_BUCKETS[0]], routes[route][0]
+            gm, em = dict(pytree.leaves_with_keys(g)), dict(pytree.leaves_with_keys(err_o))
+            hop_ms = []
+            for b in plan.buckets:
+                xs = [gm[k].reshape(WIRE_PODS, -1) + em[k].reshape(WIRE_PODS, -1) for k in b.keys]
+                _, sec = synced(lambda: bkt._bucket_hop(xs, cfg_b.fz_config(), None, b.tag))
+                hop_ms.append((b.tag, len(b.keys), sum(b.n_elems), sec * 1e3))
+                del xs
+            say(14, f"{card} | bucket hops at {WIRE_BUCKETS[0] >> 20} MiB ({plan.n_buckets} "
+                    f"buckets, {WIRE_PODS} pods inline, host included): "
+                    + ", ".join(f"{t} {n} leaves {e:,} el {ms:.2f} ms" for t, n, e, ms in hop_ms))
+        del err_k, err_o
+        gc.collect()
+    wire = sum(car.wire_bytes_per_leaf(t.numel(), gc_k)["compressed"]
+               for t in pytree.leaves(abstract) if t.numel() >= gc_k.min_leaf_size)
+    gathered = sum(bkt.expected_cross_pod_bytes(plans[WIRE_BUCKETS[0]], gc_k, 1).values())
+    best = min(reduce_s)
+    say(14, f"{card} | reduce_stacked kernel route, {WIRE_PODS} pods inline: "
+            f"{', '.join(f'{s * 1e3:.1f}' for s in reduce_s)} ms a step (host included), best "
+            f"{best * 1e3:.1f} ms = {raw_bytes / best / 1e9:.1f} GB/s of raw float32 gradients; "
+            + "; ".join(f"{r} {', '.join(f'{t * 1e3:.1f}' for t in ts)} ms"
+                        for r, ts in route_s.items()))
+    say(14, f"{card} | wire bytes a pod {wire:,} (gathered {gathered:,}) against raw float32 "
+            f"{4 * n_pod:,}: {4 * n_pod / wire:.4f}x smaller at capacity_frac "
+            f"{gc_k.capacity_frac}; plans: " + ", ".join(
+                f"{bb >> 20} MiB -> {p.n_buckets} buckets" for bb, p in plans.items()))
+
+    # K4 and K6 alone at the largest stream of the path: one pod's embed leaf
+    x = g["embed"][0].reshape(-1)
+    fzc = gc_k.fz_config()
+    ebx, n = rt.resolve_eb(x, fzc), x.numel()
+    cap = fzc.payload_capacity(n)
+    bf, pl, _ = kernels.fused_compress(x, ebx, capacity=cap)
+    k46 = {"fused_compress": (lambda: kernels.fused_compress(x, ebx, capacity=cap),
+                              lambda: ref.fused_compress_ref(x, ebx, capacity=cap),
+                              n * 4 + bf.numel() * 4 + cap * 16 + 4),
+           "fused_decompress": (lambda: kernels.fused_decompress(bf, pl, ebx, shape=(n,)),
+                                lambda: ref.fused_decompress_ref(bf, pl, ebx, shape=(n,)),
+                                bf.numel() * 4 + pl.numel() * 2 + 4 + n * 4)}
+
+    def event_ms(fn, iters):
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(iters):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / iters
+    for name, (fn, plain, nbytes) in k46.items():
+        ms, plain_ms = event_ms(fn, 5), event_ms(plain, 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        say(14, f"{card} | {name} at {n:,} elements (1-D f32, paper mode, capacity 1.0): "
+                f"{ms:.4f} ms a launch, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by bytes "
+                f"({nbytes / 1e9:.3f} GB), {100 * bound / ms:.1f}% of bound")
+    del x, bf, pl, k46
+
+    # the subset on the card and on the CPU: layer 0's wk, final_norm, a bypass leaf
+    sub = {"layers": {"wk": g["layers"]["wk"][:, 0].clone()},
+           "final_norm": g["final_norm"].clone(), "bias": g["final_norm"][:, :8].clone()}
+    sub_cpu = pytree.tree_map(lambda t: t.cpu(), sub)
+    ab_sub = pytree.tree_map(lambda t: torch.empty(t.shape[1:], device="meta"), sub)
+    e_card = car.init_error_state(ab_sub, WIRE_PODS, gc_k)
+    e_cpu = car.init_error_state(ab_sub, WIRE_PODS, gc_k, device="cpu")
+    t0 = time.time()
+    for step in range(WIRE_STEPS):
+        r_card, e_card = drive("reduce", lambda: car.reduce_stacked(sub, e_card, gc_k))
+        r_cpu, e_cpu = car.reduce_stacked(sub_cpu, e_cpu, gc_k)
+        same_tree(r_cpu, r_card, f"subset step {step}: reduced, CPU vs card")
+        same_tree(e_cpu, e_card, f"subset step {step}: error state, CPU vs card")
+    say(14, f"subset (layer 0 wk {sub['layers']['wk'][0].numel():,} elements, final_norm, a "
+            f"bypass leaf): card == CPU route bit for bit over {WIRE_STEPS} steps "
+            f"({time.time() - t0:.1f} s)")
+    del sub, sub_cpu, e_card, e_cpu, r_card, r_cpu
+
+    # -- (d) NCCL at world size 1: the distributed form against the inline one
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = compat.make_mesh((1,), ("pod",))
+        g1 = pytree.tree_map(lambda t: t[:1], g)
+        plan = plans[WIRE_BUCKETS[0]]
+        cfg_b = dataclasses.replace(gc_k, overlap=True, bucket_bytes=WIRE_BUCKETS[0])
+        red_i, err_i = car.reduce_stacked(g1, car.init_error_state(abstract, 1, gc_k), gc_k)
+        obs.reset()
+        (red_d, err_d), sec_d = synced(lambda: drive("nccl", lambda: car.reduce_stacked(
+            g1, car.init_error_state(abstract, 1, gc_k), gc_k, mesh)))
+        counted = car.gathered_bytes()
+        counted.pop("bypass", None)           # small leaves' exact mean: in no bucket
+        same_tree(red_i, red_d, "NCCL barrier reduce vs inline, reduced")
+        same_tree(err_i, err_d, "NCCL barrier reduce vs inline, error state")
+        expected = bkt.expected_cross_pod_bytes(plan, cfg_b, 1)
+        if sum(counted.values()) != sum(expected.values()):
+            raise AssertionError(f"NCCL barrier gathered {sum(counted.values())} bytes, the "
+                                 f"model {sum(expected.values())}")
+        del red_d, err_d
+        obs.reset()
+        (red_b, err_b), sec_b = synced(lambda: drive("nccl", lambda: bkt.reduce_stacked_bucketed(
+            g1, car.init_error_state(abstract, 1, cfg_b), cfg_b, mesh, plan=plan)))
+        counted = car.gathered_bytes()
+        counted.pop("bypass", None)
+        same_tree(red_i, red_b, "NCCL bucketed reduce vs inline, reduced")
+        same_tree(err_i, err_b, "NCCL bucketed reduce vs inline, error state")
+        if counted != expected:
+            raise AssertionError(f"NCCL bucketed gathered {counted}, the model {expected}")
+        del red_b, err_b, red_i, err_i, g1
+        say(14, f"{card} | NCCL at world size 1: the barrier and bucketed reduce equal the "
+                f"inline form at 1 pod bit for bit; the bytes each of the {plan.n_buckets} "
+                f"buckets handed to all_gather equal expected_cross_pod_bytes "
+                f"({sum(expected.values()):,} in all); barrier {sec_d * 1e3:.1f} ms, bucketed "
+                f"{sec_b * 1e3:.1f} ms (host included)")
+
+        # -- (e) flash_decode_shard: K7 partials at each offset, the factored combine
+        rng = np.random.default_rng(0)
+        B, H, KVH, D = FLASH_GEOMETRY
+        S, shards = FLASH_POSITIONS, FLASH_SHARDS
+        q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32)).to(dev) \
+            .to(torch.bfloat16)
+        k = torch.from_numpy(rng.standard_normal((B, S, KVH, D), dtype=np.float32)).to(dev) \
+            .to(torch.bfloat16)
+        v = torch.from_numpy(rng.standard_normal((B, S, KVH, D), dtype=np.float32)).to(dev) \
+            .to(torch.bfloat16)
+        length = torch.tensor(FLASH_LENGTHS, dtype=torch.int32, device=dev)
+        want = decode_attention(q.float(), k, v, length)
+        s_sh = S // shards
+        parts = drive("shard", lambda: [fdp.shard_partials(
+            q, k[:, i * s_sh:(i + 1) * s_sh], v[:, i * s_sh:(i + 1) * s_sh], length,
+            shard_offset=i * s_sh) for i in range(shards)])
+        m_last, num_last, den_last = parts[-1]
+        if max(FLASH_LENGTHS) > (shards - 1) * s_sh or not (
+                bool((m_last == fdp.NEG_INF).all()) and not num_last.any() and not den_last.any()):
+            raise AssertionError("the last shard is not empty: (m, num, den) != (-1e30, 0, 0)")
+        got = fdp.combine_shards(parts)
+        err_sh = float((got - want).abs().max())
+        mesh_m = compat.make_mesh((1,), ("model",))
+        whole = drive("shard", lambda: fdp.flash_decode_shard(q, k, v, length, mesh=mesh_m,
+                                                              axis="model", shard_offset=0))
+        one = fdp.combine_shards([fdp.shard_partials(q, k, v, length, shard_offset=0)], q.dtype)
+        if err_sh > K7_TOL or not torch.equal(bits(whole), bits(one)):
+            raise AssertionError(f"flash_decode_shard: combine max|err| {err_sh}; NCCL at world "
+                                 "1 differs from the collective-free combine of one shard")
+        say(14, f"flash_decode_shard at B {B}, H {H}, KVH {KVH}, D {D}, {S} positions, bf16, "
+                f"lengths {FLASH_LENGTHS}: {shards} shards of {s_sh} through K7 (the last past "
+                f"every length: exactly (-1e30, 0, 0)), combined by combine_shards, "
+                f"max|err| {err_sh:.2e} vs the plain attention (limit {K7_TOL}); the whole cache "
+                f"as one shard on NCCL (all_reduce MAX/SUM) == combine_shards of it, bit for bit")
+    finally:
+        dist.destroy_process_group()
+
+    # -- (f) a checkpoint of one decoder layer of the reduced tree, plus a bf16 leaf
+    red_k, _ = car.reduce_stacked(g, car.init_error_state(abstract, WIRE_PODS, gc_k), gc_k)
+    del g
+    layer = {name: red_k["layers"][name][0].contiguous() for name in red_k["layers"]}
+    del red_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer["wk_bf16"] = layer["wk"].to(torch.bfloat16)
+    n_ck = sum(t.numel() for n, t in layer.items() if t.dtype == torch.float32)
+    timers = {"encode": 0.0, "decode": 0.0, "plan": 0.0}
+    ent = fz_mod.ent
+    originals = {name: getattr(ent, name) for name in timers}
+
+    def timed(name):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return originals[name](*a, **kw)
+            finally:
+                timers[name] += time.perf_counter() - t
+        return run
+    with tempfile.TemporaryDirectory() as root:
+        for name in timers:
+            setattr(ent, name, timed(name))
+        try:
+            d, save_s = synced(lambda: drive("checkpoint", lambda: ckpt.save(
+                root, 1, layer, codec="fz")))
+            enc_s = timers["encode"] + timers["plan"]
+            (back, _), restore_s = synced(lambda: drive("checkpoint", lambda: ckpt.restore(
+                root, layer)))
+            dec_s = timers["decode"]
+        finally:
+            for name, fn in originals.items():
+                setattr(ent, name, fn)
+        rep = checkpoint.compression_report(root, 1)
+        worst = 0.0
+        for name, x in layer.items():
+            y = back[name]
+            if x.dtype == torch.bfloat16:
+                if not torch.equal(bits(x), bits(y)):
+                    raise AssertionError(f"bf16 leaf {name} does not come back exact")
+                continue
+            ebl = float(rt.resolve_eb(x.reshape(-1), checkpoint._FZ_CKPT))
+            rng_ = float(x.max() - x.min())
+            err = float((y - x).abs().max())
+            if err > ebl * 1.01 + rng_ * 2e-7:
+                raise AssertionError(f"checkpoint leaf {name}: max err {err} past eb {ebl}")
+            worst = max(worst, err / ebl)
+        # the wk leaf's bytes, against the CPU port's save of the same leaf
+        wk = layer["wk"]
+        with tempfile.TemporaryDirectory() as r2, tempfile.TemporaryDirectory() as r3:
+            d_card = ckpt.save(r2, 1, {"wk": wk}, codec="fz")
+            d_cpu = ckpt.save(r3, 1, {"wk": wk.cpu()}, codec="fz", device="cpu")
+            card_b = open(os.path.join(d_card, "leaf_000000.bin"), "rb").read()
+            if card_b != open(os.path.join(d_cpu, "leaf_000000.bin"), "rb").read():
+                raise AssertionError("the wk leaf's file differs between the card and the CPU")
+            in_layer = os.path.join(d, f"leaf_{sorted(layer).index('wk'):06d}.bin")
+            if open(in_layer, "rb").read() != card_b:
+                raise AssertionError("the wk leaf's file in the layer's checkpoint differs")
+        say(14, f"{card} | checkpoint of {sorted(layer)} ({n_ck:,} float32 elements, "
+                f"{4 * n_ck / 1e9:.3f} GB, codec fz, strict eb 1e-5 rel): save {save_s:.2f} s "
+                f"(host entropy probe + encode {enc_s:.2f} s), restore {restore_s:.2f} s (host "
+                f"entropy decode {dec_s:.2f} s); compression_report ratio {rep['ratio']:.4f} "
+                f"({rep['raw_bytes']:,} -> {rep['stored_bytes']:,} bytes); max_err/eb "
+                f"{worst:.4f}; bf16 leaf exact; the wk leaf's file == the CPU port's")
+    del layer, back
+    for path, counts in launches.items():
+        say(14, f"launches on the {path} path: {counts}")
+    need = {"reduce": ("fused_compress", "fused_decompress"),
+            "bucketed": ("fused_compress", "fused_decompress"),
+            "nccl": ("fused_compress", "fused_decompress"),
+            "shard": ("flash_decode",),
+            "checkpoint": ("fused_shuffle_encode", "fused_decompress")}
+    for path, names in need.items():
+        for name in names:
+            if launches[path][name] <= 0:
+                raise AssertionError(f"{name} was not launched on the {path} path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(14, f"wire and checkpoint phase done in {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def tune_phase(card, dev, serving, x) -> None:
     """Phase 13: the resource table and its gates, the tuner on the card's
     points and its gates, and "auto" / the engine on the tuned cache (phase
@@ -1833,7 +2230,8 @@ def main() -> int:
     paper_comparison(card, dev, fields, cuda_ms, device_ms)
     telemetry_phase(card, dev, serving, fields["Hurricane-like smooth"])
     tune_phase(card, dev, serving, fields["Hurricane-like smooth"])
-    del serving
+    del serving, fields, flush
+    wire = wire_phase(card, dev)
     pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
     for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10
         row["max_abs_err"] = max_err[row["name"]]
@@ -1842,6 +2240,8 @@ def main() -> int:
                               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                               "bound_by": row["bound_by"]}, pages[row["name"]]]
     rows.append(k7_row)
+    for row in rows:                  # phase 14's launches, all its paths
+        row["wire_launches"] = sum(counts[row["name"]] for counts in wire.values())
     say(10, f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

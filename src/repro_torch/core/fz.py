@@ -60,7 +60,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .. import obs
+from .. import obs, pytree
 from ..device import resolve_device
 from ..kernels import ops
 from ..obs import spans
@@ -417,18 +417,6 @@ def decompress_batch(comp: FZCompressed, cfg: FZConfig, *, device="cuda") -> tor
     return out
 
 
-def _tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts, lists and tuples (``rest``: same structure)."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
-        if isinstance(tree, list):
-            return out
-        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
-    return fn(tree, *rest)
-
-
 def tree_compress(tree: Any, cfg: FZConfig, *, device="cuda") -> Any:
     """Compress every float tensor leaf of >= one tile and <= 3 dims; others pass through."""
     dev = resolve_device(device)
@@ -438,17 +426,17 @@ def tree_compress(tree: Any, cfg: FZConfig, *, device="cuda") -> Any:
                 and x.numel() >= shuffle.TILE and x.ndim <= 3):
             return compress(x, cfg, device=dev)
         return x
-    return _tree_map(leaf, tree)
+    return pytree.tree_map(leaf, tree)
 
 
 def tree_decompress(tree: Any, cfg: FZConfig, dtypes: Any | None = None, *,
                     device="cuda") -> Any:
     """Decompress every container leaf; ``dtypes`` (same structure) casts the leaves."""
     dev = resolve_device(device)
-    out = _tree_map(lambda x: decompress(x, cfg, device=dev) if isinstance(x, FZCompressed)
+    out = pytree.tree_map(lambda x: decompress(x, cfg, device=dev) if isinstance(x, FZCompressed)
                     else x, tree)
     if dtypes is not None:
-        out = _tree_map(lambda x, d: x.to(d), out, dtypes)
+        out = pytree.tree_map(lambda x, d: x.to(d), out, dtypes)
     return out
 
 

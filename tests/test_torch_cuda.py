@@ -9,7 +9,15 @@ the same integer work and the same IEEE float divide and multiply. K7
 (flash-decode) is held at 2e-4 against the plain split-then-combine at the
 wrapper's split count (what the wrapper runs for CPU tensors): float32 sums in
 another order; fully masked rows exactly (-1e30, 0, 0).
+
+The wire and checkpoints on the card: ``reduce_stacked`` (K4, K6) equal to
+the plain route, the CPU route and the bucketed form over three steps;
+``flash_decode_shard``'s per-shard K7 partials combined within 2e-4 of the
+plain attention; a ``codec="fz"`` checkpoint saved on the card (K5) equal to
+the CPU port's files, restored (K6) within the bound.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -525,3 +533,103 @@ def test_launcher_profile_dir_holds_the_card_kernels(cuda, tmp_path):
     assert any("flash_decode" in n for n in kernel_names), sorted(kernel_names)[:20]
     ranges = {e["name"] for e in doc["traceEvents"] if e.get("cat") == "user_annotation"}
     assert {"engine.serve", "sched.step", "engine.decode_step_paged"} <= ranges
+
+
+# -- the wire (dist) and checkpoints (ckpt) on the card -------------------------
+
+def _wire_grads(n_pods, device):
+    g = torch.Generator().manual_seed(5)
+    f = lambda *s: torch.randn((n_pods,) + s, generator=g).to(device)  # noqa: E731
+    return {"layers": {"wq": f(2, 128, 256), "wk": f(2, 128, 64)}, "embed": f(1000, 130),
+            "final_norm": f(4096), "bias": f(8),
+            "emb_bf16": f(96, 100).to(torch.bfloat16)}
+
+
+def _same_tree(a, b):
+    from repro_torch import pytree
+    la, lb = pytree.leaves_with_keys(a), pytree.leaves_with_keys(b)
+    assert [k for k, _ in la] == [k for k, _ in lb]
+    for (k, x), (_, y) in zip(la, lb):
+        assert _equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                      y.view(torch.int16) if y.dtype == torch.bfloat16 else y), k
+
+
+@pytest.mark.parametrize("n_pods", [2, 3])
+def test_reduce_on_the_card_matches_plain_cpu_and_bucketed(cuda, n_pods):
+    """Three error-feedback steps of ``reduce_stacked`` (K4, K6) equal the plain
+    route on the card and the CPU route, bit for bit; the bucketed form equals
+    it; K4 and K6 launched."""
+    import dataclasses
+    from repro_torch.dist import bucketed_reduce as bkt
+    from repro_torch.dist import compressed_allreduce as car
+    from repro_torch import pytree
+    cfg = car.GradCompressionConfig(enabled=True, min_leaf_size=1024)
+    routes = {"kernel": (cfg, cuda), "plain": (dataclasses.replace(cfg, use_kernels=False), cuda),
+              "cpu": (cfg, torch.device("cpu")),
+              "bucketed": (dataclasses.replace(cfg, overlap=True, bucket_bytes=1 << 16), cuda)}
+    ab = pytree.tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype, device="meta"),
+                         _wire_grads(n_pods, "cpu"))
+    errs = {r: car.init_error_state(ab, n_pods, c, device=d) for r, (c, d) in routes.items()}
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        out = {}
+        for r, (c, d) in routes.items():
+            fn = bkt.reduce_stacked_bucketed if r == "bucketed" else car.reduce_stacked
+            out[r], errs[r] = fn(_wire_grads(n_pods, d), errs[r], c)
+        for r in ("plain", "cpu", "bucketed"):
+            _same_tree(out["kernel"], out[r])
+            _same_tree(errs["kernel"], errs[r])
+    counts = kernels.launch_counts()
+    assert counts["fused_compress"] > 0 and counts["fused_decompress"] > 0
+
+
+@pytest.mark.parametrize("lengths", [[600, 417, 208, 1], [832, 700, 5, 0]])
+def test_flash_decode_shards_on_the_card(cuda, lengths):
+    """K7 partials at each shard's offset (one shard past every length in the
+    first set), combined by ``combine_shards``: within 2e-4 of the plain
+    attention."""
+    from repro_torch.dist import flash_decode as fdp
+    from repro_torch.models.attention import decode_attention
+    g = torch.Generator().manual_seed(2)
+    B, H, KVH, D, S, n = 4, 32, 4, 128, 832, 4
+    q, k, v = (torch.randn(s, generator=g).to(cuda).to(torch.bfloat16)
+               for s in ((B, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    s = S // n
+    kernels.reset_launch_counts()
+    parts = [fdp.shard_partials(q, k[:, i * s:(i + 1) * s], v[:, i * s:(i + 1) * s], length,
+                                shard_offset=i * s) for i in range(n)]
+    assert kernels.launch_counts()["flash_decode"] == n
+    got = fdp.combine_shards(parts)
+    want = decode_attention(q.float(), k, v, length)
+    valid = length > 0                      # a length-0 row: the reference degenerates to a mean
+    torch.testing.assert_close(got[valid], want[valid], rtol=2e-4, atol=2e-4)
+
+
+def test_checkpoint_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``codec="fz"`` compresses on the card (K5) and restores with K6: the files
+    equal the CPU port's byte for byte, the bound holds and bf16 comes back exact."""
+    from repro_torch import ckpt
+    from repro_torch.ckpt import checkpoint
+    g = torch.Generator().manual_seed(4)
+    tree = {"w": torch.randn(512, 300, generator=g).cumsum(0), "n": torch.randn(70000, generator=g),
+            "e": torch.randn(300, 256, generator=g).to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32)}
+    kernels.reset_launch_counts()
+    d_card = ckpt.save(str(tmp_path / "card"), 1, {k: v.to(cuda) for k, v in tree.items()},
+                       codec="fz")
+    d_cpu = ckpt.save(str(tmp_path / "cpu"), 1, tree, codec="fz", device="cpu")
+    for name in sorted(os.listdir(d_cpu)):
+        assert open(os.path.join(d_card, name), "rb").read() == \
+            open(os.path.join(d_cpu, name), "rb").read(), name
+    back, meta = ckpt.restore(str(tmp_path / "card"), tree)
+    counts = kernels.launch_counts()
+    assert counts["fused_shuffle_encode"] > 0 and counts["fused_decompress"] > 0
+    assert meta["step"] == 1
+    for key in ("w", "n"):
+        x = tree[key]
+        eb = float(checkpoint._FZ_CKPT.eb * torch.maximum(x.max() - x.min(), x.abs().max()))
+        rng_ = float(x.max() - x.min())
+        assert float((back[key].cpu() - x).abs().max()) <= eb * 1.01 + rng_ * 2e-7
+    assert torch.equal(back["e"].cpu().view(torch.int16), tree["e"].view(torch.int16))
+    assert torch.equal(back["step"].cpu(), tree["step"])

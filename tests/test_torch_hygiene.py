@@ -16,6 +16,7 @@ import ast
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +24,10 @@ import pytest
 import torch
 
 import repro_torch as rt
-from repro_torch import configs, interop, kernels
+from repro_torch import ckpt, configs, interop, kernels
+from repro_torch.dist import compat
+from repro_torch.dist import compressed_allreduce as car
+from repro_torch.dist import flash_decode as fdp
 from repro_torch.core import shuffle
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_decode as fd
@@ -85,6 +89,7 @@ def _attn_inputs():
 
 
 SMOKE = configs.get("yi-6b", smoke=True)
+NEVER_WRITTEN = os.path.join(tempfile.gettempdir(), "repro_torch_hygiene_never_written")
 
 
 ENTRY_POINTS = {
@@ -114,6 +119,14 @@ ENTRY_POINTS = {
     "PagePool": lambda x, c: PagePool(PoolConfig(), n_layers=2, n_kv_heads=2, head_dim=8),
     "Engine": lambda x, c: Engine(zoo.build(SMOKE), {}, pool=PoolConfig()),
     "launch.serve": lambda x, c: launch_serve.main(["--arch", "yi-6b", "--smoke", "--paged"]),
+    "make_mesh": lambda x, c: compat.make_mesh((1,), ("pod",)),
+    "init_error_state": lambda x, c: car.init_error_state(
+        {"w": torch.from_numpy(x)}, 2, car.GradCompressionConfig(enabled=True)),
+    "shard_partials": lambda x, c: fdp.shard_partials(*_attn_inputs(), shard_offset=0),
+    "flash_decode_shard": lambda x, c: fdp.flash_decode_shard(
+        *_attn_inputs(), mesh=None, axis="model", shard_offset=0),
+    "ckpt.save": lambda x, c: ckpt.save(NEVER_WRITTEN, 1, {"x": torch.from_numpy(x)}),
+    "ckpt.restore": lambda x, c: ckpt.restore(NEVER_WRITTEN, {"x": torch.from_numpy(x)}),
 }
 
 
