@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port end to end on one CUDA card: the FZ compressor and
-the serving path (Yi-6B over the paged FZ KV pool with K7 flash-decode).
+"""Drive the PyTorch/CUDA port end to end on one CUDA card: the FZ compressor, the
+serving path (Yi-6B over the paged FZ KV pool with K7 flash-decode), the
+gradient wire and checkpoints, and training (Yi-6B's width, K4/K6 in the
+compressed gradient mean of every step).
 
     python3 chip_smoke.py          # from the root of the repository, on a card
 
@@ -172,7 +174,41 @@ Phases (each prints its own lines):
      bound, the bf16 leaf exact, the wk leaf's file equal to the CPU port's.
      Each path's launches of K4, K5, K6 and K7 are counted and must be above 0
      where the path runs them; the ``kernels`` JSON gives each kernel's phase-14
-     launches as ``wire_launches``.
+     launches as ``wire_launches``;
+  15. training (``repro_torch.train``, ``optim``, ``launch``), after phase 14
+     frees its memory. Yi-6B at its published width with its 32 layers cut to
+     2 (870,338,560 parameters), ``ShapeConfig("local", 4096, 2, "train")``
+     (train_4k's seq_len, the global batch cut from 256 to 2), ``TokenStream``
+     seed 0, random bfloat16 weights from a ``torch.Generator`` seeded 0,
+     through ``Trainer.run`` on ``launch.mesh.make_mesh((1, 1, 1), ("pod",
+     "data", "model"))``: NCCL at world size 1, the pod axis that makes the
+     step compress, as the reference's step would on one device given that
+     mesh (its ``make_local_mesh(pods=1)`` has no pod axis and runs the exact
+     reduce). ``GradCompressionConfig(enabled=True)`` (rel eb 1e-4, paper mode,
+     capacity 1.0, ``min_leaf_size`` 4096). 2 steps of the kernel route equal 2
+     of the plain route from the same start, bit for bit (params, optimizer,
+     error state); then the overlap form (4 MiB buckets, each issued from the
+     backward on a side stream) and the barrier form in turn from that state:
+     each form's first step is its warm-up, printed on its own line with what
+     it held (kernel builds, the NCCL communicator's start, the allocator's
+     growth) and kept out of every rate; after 4 steps of each the two are
+     equal bit for bit; 4 timed steps of each (CUDA events, host included),
+     tokens/s, the split of one step (forward + backward, reduce, AdamW, the
+     rest), one step of each form under ``torch.profiler`` (device ms and
+     launches by kind and the idle share; the share of the hops' time that
+     ran beside the main stream) and the peak allocated memory (limit 70 GB).
+     Every step launches K4 and K6 once a leaf past ``min_leaf_size``, the
+     plain route none. At the smoke size on the same mesh: 4 steps, a restart
+     and 2 more equal 6 steps bit for bit (raw codec); with ``codec="fz"`` (K5
+     to save, K6 to restore) every FZ leaf equals the plain route's round trip
+     bit for bit and is counted within or past its bound (only error-state
+     leaves may pass it; the CPU tests show the reference's round trip passes
+     it there too). The launcher (``python -m repro_torch.launch.train --arch
+     yi-6b --smoke --ckpt-codec fz``, its ``main`` in this process so that
+     its K5/K6 launches count), 4 steps then 6 on one ``--ckpt-dir``: the
+     reference's line format, the second at ``resume_step=4``. Every line of the phase but the launch counts starts
+     with the card's name and power limit; the ``kernels`` JSON gives each
+     kernel's launches over the phase as ``train_launches``.
 
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
@@ -300,6 +336,12 @@ WIRE_BUCKETS = (4 << 20, 1 << 30)          # bucket_bytes: the default and one f
 # decode attention at Yi-6B's geometry (B, H, KVH, D), split in shards; the last
 # shard lies past every length
 FLASH_GEOMETRY, FLASH_POSITIONS, FLASH_SHARDS = (4, 32, 4, 128), 832, 4
+# phase 15: training at Yi-6B's width, its 32 layers cut to 2 (as phase 14's tree), at
+# train_4k's seq_len with the global batch cut from 256 to 2 for one card
+TRAIN_LAYERS, TRAIN_BUCKET, TRAIN_TOTAL = 2, 4 << 20, 10
+TRAIN_SHAPE = ("local", 4096, 2, "train")         # ShapeConfig: 8,192 tokens a step
+TRAIN_TIMED = 4                                   # timed steps of each form, in turn
+TRAIN_PEAK_LIMIT = 70e9                           # bytes allocated; past it the batch is cut
 FLASH_LENGTHS = [600, 417, 208, 1]
 
 
@@ -1464,6 +1506,445 @@ def wire_phase(card, dev) -> dict:
     return launches
 
 
+KERNEL_KINDS = (                  # (kind, substrings of the profiler's kernel names)
+    ("K4 encode_tiles", ("encode_tiles",)),
+    ("K6 decode_scan_rows/bin_residuals/scan_columns",
+     ("decode_scan_rows", "bin_residuals", "scan_columns")),
+    ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("NCCL", ("nccl",)),
+    ("sort (embedding backward)", ("RadixSort", "radix_sort", "embedding")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise_kernel",)),
+    ("copies and fills", ("Memcpy", "Memset", "copy", "fill")),
+)
+
+
+def kernel_kind(name: str) -> str:
+    for kind, keys in KERNEL_KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def hop_overlap(prof) -> tuple[float, float, float]:
+    """From a profile's kernel intervals by CUDA stream: the main stream (the one
+    with the most device time) against every other stream (the overlap form's
+    side stream and NCCL's). Returns (hop ms: the union of the other streams'
+    intervals, main ms: the union of the main stream's, and the ms of hop time
+    that ran while the main stream was busy)."""
+    per: dict = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            per.setdefault(e.device_resource_id, []).append((e.time_range.start,
+                                                             e.time_range.end))
+    if not per:
+        return 0.0, 0.0, 0.0
+    main = max(per, key=lambda sid: sum(t1 - t0 for t0, t1 in per[sid]))
+
+    def union(spans):
+        out = []
+        for t0, t1 in sorted(spans):
+            if out and t0 <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], t1)
+            else:
+                out.append([t0, t1])
+        return out
+    m = union(per[main])
+    h = union([s for sid, spans in per.items() if sid != main for s in spans])
+    inter, i, j = 0.0, 0, 0
+    while i < len(m) and j < len(h):
+        lo, hi = max(m[i][0], h[j][0]), min(m[i][1], h[j][1])
+        inter += max(0.0, hi - lo)
+        if m[i][1] < h[j][1]:
+            i += 1
+        else:
+            j += 1
+    total = lambda spans: sum(t1 - t0 for t0, t1 in spans) / 1e3  # noqa: E731
+    return total(h), total(m), inter / 1e3
+
+
+def train_phase(card, dev) -> dict:
+    """Phase 15: training (``repro_torch.train``) at Yi-6B's width through
+    ``Trainer.run`` on a one-rank NCCL pod mesh, the compressed gradient mean
+    on. Returns each path's launches. Raises on any failed check."""
+    import dataclasses
+    import gc
+    import re
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch as rt
+    from repro_torch import configs, kernels, pytree
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist import compressed_allreduce as car
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import zoo
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train import step as step_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.time()
+    launches = {path: dict.fromkeys(kernels.WRAPPERS, 0)
+                for path in ("train", "plain", "overlap", "resume", "launcher")}
+
+    def log(msg):
+        say(15, f"{card} | {msg}")
+
+    def drive(path, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        counts = kernels.launch_counts()
+        for name, count in counts.items():
+            launches[path][name] += count
+        return out, counts
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else (
+            t.view(torch.int32) if t.dtype == torch.float32 else t)
+
+    def same_tree(a, b, what):
+        la, lb = pytree.leaves_with_keys(a), pytree.leaves_with_keys(b)
+        if [k for k, _ in la] != [k for k, _ in lb]:
+            raise AssertionError(f"{what}: the trees' leaves differ")
+        for (k, x), (_, y) in zip(la, lb):
+            same = (x.shape == y.shape and torch.equal(bits(x), bits(y))
+                    if isinstance(x, torch.Tensor) else x == y)
+            if not same:
+                raise AssertionError(f"{what}: leaf {k} differs")
+
+    def finite(hist, what):
+        for m in hist:
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+                raise AssertionError(f"{what}: step {m['step']} loss {m['loss']} grad_norm "
+                                     f"{m['grad_norm']}")
+
+    full = configs.get("yi-6b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    model = zoo.build(cfg)
+    shape = ShapeConfig(*TRAIN_SHAPE)
+    stream = TokenStream(cfg.vocab, shape.seq_len, shape.global_batch, seed=0)
+    gc_k = car.GradCompressionConfig(enabled=True)     # rel eb 1e-4, paper, capacity 1.0
+    n_fz = sum(1 for t in pytree.leaves(model.abstract_params())
+               if t.dtype.is_floating_point and t.numel() >= gc_k.min_leaf_size)
+
+    def tcfg(gcc):
+        return TrainConfig(grad_compress=gcc, total_steps=TRAIN_TOTAL, warmup_steps=1)
+    fresh_group = not dist.is_initialized()       # the first step starts its communicator
+    mesh = lmesh.make_mesh((1, 1, 1), ("pod", "data", "model"), device=dev)
+    try:
+        p0 = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        log(f"Yi-6B at its published width (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+            f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}); cuts: depth "
+            f"{full.n_layers} -> {cfg.n_layers} layers ({model.param_count():,} parameters), "
+            f"global batch {SHAPES['train_4k'].global_batch} -> {shape.global_batch} at "
+            f"train_4k's seq_len {shape.seq_len} ({shape}); {n_fz} leaves past min_leaf_size; "
+            f"mesh make_mesh((1, 1, 1), ('pod', 'data', 'model')) = {lmesh.mesh_shape(mesh)} "
+            f"on {dist.get_backend()} at world size {dist.get_world_size()} (make_local_mesh("
+            f"pods=1) has no pod axis and never compresses); GradCompressionConfig(enabled="
+            f"True): eb {gc_k.eb} {gc_k.eb_mode}, paper mode, capacity {gc_k.capacity_frac}, "
+            f"min_leaf_size {gc_k.min_leaf_size}; TokenStream seed 0, weights from "
+            f"torch.Generator seed 0")
+
+        def trainer(gcc, state=None):
+            t = Trainer(model, shape, mesh, tcfg(gcc), stream=stream,
+                        init_params=p0 if state is None else state["params"], device=dev)
+            if state is not None:
+                t.opt, t.err, t.step = state["opt"], state["err"], int(state["step"])
+            return t
+
+        def state_of(t):
+            return dict(t._state(), step=t.step)
+
+        def run(t, path, n=1):
+            hist = []
+            for _ in range(n):
+                (h,), counts = drive(path, lambda: t.run(1)[-1:])
+                hist.append(h)
+                if path != "plain":
+                    if not (counts["fused_compress"] == counts["fused_decompress"] == n_fz):
+                        raise AssertionError(f"step {h['step']} on the {path} path launched "
+                                             f"{counts}, not K4 = K6 = {n_fz}")
+                elif any(counts.values()):
+                    raise AssertionError(f"the plain route launched kernels: {counts}")
+            finite(hist, path)
+            return hist
+
+        noise = {path: {"cudaMalloc": [], "retries": [], "gc_ms": []}
+                 for path in ("train", "overlap")}
+        gc_ms, gc_t0 = [0.0], [0.0]
+
+        def gc_clock(phase, info):
+            if phase == "start":
+                gc_t0[0] = time.perf_counter()
+            else:
+                gc_ms[0] += (time.perf_counter() - gc_t0[0]) * 1e3
+
+        def timed(t, path):
+            """One step: (metrics, ms by CUDA events with the host's share). Keeps
+            what may stretch a step: the caching allocator's cudaMalloc calls and
+            retries (a retry frees its cache and waits for the card), and the
+            host's Python garbage collection."""
+            s0, gc_ms[0] = torch.cuda.memory_stats(), 0.0
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            gc.callbacks.append(gc_clock)
+            try:
+                e0.record()
+                (h,) = run(t, path)
+                e1.record()
+                torch.cuda.synchronize()
+            finally:
+                gc.callbacks.remove(gc_clock)
+            s1 = torch.cuda.memory_stats()
+            for key, stat in (("cudaMalloc", "num_device_alloc"),
+                              ("retries", "num_alloc_retries")):
+                noise[path][key].append(s1.get(stat, 0) - s0.get(stat, 0))
+            noise[path]["gc_ms"].append(round(gc_ms[0], 1))
+            return h, e0.elapsed_time(e1)
+
+        def warm_up(t, path, form):
+            """The first step of a form, reported on its own line and never in a rate."""
+            libs, stats = set(build._loaded), torch.cuda.memory_stats()
+            t0 = time.perf_counter()
+            h, ms = timed(t, path)
+            wall = time.perf_counter() - t0
+            new_libs = sorted(set(build._loaded) - libs)
+            after = torch.cuda.memory_stats()
+            grow = (after["reserved_bytes.all.current"] - stats["reserved_bytes.all.current"])
+            log(f"warm-up: the {form} form's first step (step {h['step']}) {ms:.1f} ms (CUDA "
+                f"events), {wall * 1e3:.1f} ms host; it held: kernel libraries built or loaded "
+                f"{new_libs or 'none (built earlier)'}"
+                + ("; the NCCL communicator's start (the group's first collective)"
+                   if form == "barrier" and fresh_group else "; no NCCL start")
+                + f"; the caching allocator reserving {grow / 1e9:.2f} GB in "
+                f"{after['num_device_alloc'] - stats['num_device_alloc']} cudaMalloc calls. "
+                f"Not in any rate.")
+            return h
+
+        # -- (2) kernel route vs plain route: two steps each from the same start
+        t_b = trainer(gc_k)
+        hist_k = [warm_up(t_b, "train", "barrier")] + run(t_b, "train")
+        s2 = state_of(t_b)
+        t_p = trainer(dataclasses.replace(gc_k, use_kernels=False))
+        hist_p = run(t_p, "plain", 2)
+        same_tree(s2, state_of(t_p), "2 steps, kernel route vs plain route")
+        if [m["loss"] for m in hist_k] != [m["loss"] for m in hist_p]:
+            raise AssertionError("the plain route's losses differ from the kernel route's")
+        del t_p
+        gc.collect()
+        log("kernel route (K4/K6) == plain route (use_kernels=False) after 2 steps from the "
+            "same start: params, optimizer and error state bit for bit; loss "
+            + ", ".join(f"{m['loss']:.6f}" for m in hist_k) + ", grad_norm "
+            + ", ".join(f"{m['grad_norm']:.6f}" for m in hist_k))
+
+        # -- (3, 4) overlap vs barrier from the same state, in turn; the overlap
+        # form's first step is its warm-up, then TRAIN_TIMED timed steps of each
+        t_o = trainer(dataclasses.replace(gc_k, overlap=True, bucket_bytes=TRAIN_BUCKET), s2)
+        del s2
+        n_buckets = t_o.info["plan"].n_buckets
+        hist_o, hist_b = [warm_up(t_o, "overlap", "overlap")], []
+        ms = {"barrier": [], "overlap": []}
+        for i in range(TRAIN_TIMED):
+            h, step_ms = timed(t_b, "train")
+            hist_b.append(h)
+            ms["barrier"].append(step_ms)
+            if i == TRAIN_TIMED - 1:           # both forms TRAIN_TIMED steps past s2
+                same_tree(state_of(t_b), state_of(t_o), f"{TRAIN_TIMED} steps, barrier vs "
+                          "overlap")
+                if [m["loss"] for m in hist_o] != [m["loss"] for m in hist_b]:
+                    raise AssertionError("the overlap form's losses differ from the barrier's")
+            h, step_ms = timed(t_o, "overlap")
+            hist_o.append(h)
+            ms["overlap"].append(step_ms)
+        log(f"overlap form ({n_buckets} buckets of {TRAIN_BUCKET >> 20} MiB, each issued from "
+            f"the backward on a side stream) == barrier form after {TRAIN_TIMED} steps each "
+            f"from the same state: params, optimizer and error state bit for bit; loss "
+            + ", ".join(f"{m['loss']:.6f}" for m in hist_b) + ", grad_norm "
+            + ", ".join(f"{m['grad_norm']:.6f}" for m in hist_b))
+        for form, path in (("barrier", "train"), ("overlap", "overlap")):
+            mean, median = sum(ms[form]) / len(ms[form]), float(np.median(ms[form]))
+            log(f"{form} form, {TRAIN_TIMED} steps in turn with the other form after its "
+                f"warm-up (CUDA events, host included): " + ", ".join(
+                    f"{x:.2f}" for x in ms[form]) + f" ms, mean {mean:.2f} ms = "
+                f"{shape.tokens / mean * 1e3:.0f} tokens/s, median {median:.2f} ms = "
+                f"{shape.tokens / median * 1e3:.0f} tokens/s ({shape.tokens} tokens a step); "
+                f"per step, the warm-up first: {noise[path]}")
+        log(f"overlap / barrier time {sum(ms['overlap']) / sum(ms['barrier']):.4f}")
+
+        # -- the split of one barrier step: synchronised host timers around each part
+        split = dict.fromkeys(("forward+backward", "reduce", "AdamW"), 0.0)
+        patches = [(step_mod, "_loss_and_grads", "forward+backward"),
+                   (car, "reduce_stacked", "reduce"), (step_mod, "adamw_update", "AdamW")]
+        originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+
+        def split_timer(key, fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                split[key] += time.perf_counter() - t0
+                return out
+            return call
+        for (mod, name, key), (_, _, fn) in zip(patches, originals):
+            setattr(mod, name, split_timer(key, fn))
+        try:
+            (h_split,) = run(t_b, "train")
+        finally:
+            for mod, name, fn in originals:
+                setattr(mod, name, fn)
+        log(f"split of step {h_split['step']} of the barrier form (synchronised host timers): "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in split.items())
+            + f", rest {(h_split['seconds'] - sum(split.values())) * 1e3:.1f} ms of "
+            f"{h_split['seconds'] * 1e3:.1f} ms")
+
+        # -- one step of each form under torch.profiler
+        for form, t, path in (("barrier", t_b, "train"), ("overlap", t_o, "overlap")):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                (h,) = run(t, path)
+            wall_ms = h["seconds"] * 1e3
+            busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+            hop_ms, main_ms, beside_ms = hop_overlap(prof)
+            if form == "barrier":
+                by_kind: dict[str, list] = {}
+                for e in prof.key_averages():
+                    if e.self_device_time_total > 0:
+                        acc = by_kind.setdefault(kernel_kind(e.key), [0.0, 0])
+                        acc[0] += e.self_device_time_total / 1e3
+                        acc[1] += e.count
+                log(f"one barrier step under torch.profiler: {wall_ms:.1f} ms host, "
+                    f"{busy_ms:.1f} ms of device time, idle share "
+                    f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; device ms by kind (launches): "
+                    + "; ".join(f"{kind} {v:.2f} ({n})" for kind, (v, n) in
+                                sorted(by_kind.items(), key=lambda kv: -kv[1][0])))
+            else:
+                log(f"one overlap step under torch.profiler: {wall_ms:.1f} ms host; the hops "
+                    f"(side stream and NCCL) busy {hop_ms:.2f} ms, of which {beside_ms:.2f} ms "
+                    f"ran while the main stream computed (share "
+                    f"{beside_ms / max(hop_ms, 1e-9):.3f}); main stream busy {main_ms:.1f} ms. "
+                    f"At world size 1 there is no wire to hide: nothing is gained and none "
+                    f"is claimed")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"peak {peak / 1e9:.2f} GB allocated (torch.cuda.max_memory_allocated; two "
+            f"trainers' states on the card during the turns)")
+        if peak > TRAIN_PEAK_LIMIT:
+            raise AssertionError(f"peak {peak / 1e9:.2f} GB passes {TRAIN_PEAK_LIMIT / 1e9} GB: "
+                                 "cut the batch")
+        del t_b, t_o, p0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"full-width part done in {time.time() - t_phase:.1f} s")
+        t_resume = time.time()
+
+        # -- (5) resume at Yi-6B SMOKE size on the same pod mesh
+        scfg = configs.get("yi-6b", smoke=True)
+        smodel = zoo.build(scfg)
+        sshape = ShapeConfig("smoke", 128, 8, "train")
+        sstream = TokenStream(scfg.vocab, sshape.seq_len, sshape.global_batch, seed=0)
+        sp0 = smodel.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+
+        def strainer(root, codec="raw"):
+            return Trainer(smodel, sshape, mesh, tcfg(gc_k), stream=sstream, init_params=sp0,
+                           ckpt_dir=root, ckpt_every=100, ckpt_codec=codec, device=dev)
+        with tempfile.TemporaryDirectory() as root:
+            drive("resume", lambda: strainer(root).run(4))
+            t2, _ = drive("resume", lambda: strainer(root))
+            if t2.step != 4:
+                raise AssertionError(f"the restarted trainer is at step {t2.step}, not 4")
+            h2, _ = drive("resume", lambda: t2.run(2))
+            h6, _ = drive("resume", lambda: strainer(None).run(6))
+            if [m["loss"] for m in h2] != [m["loss"] for m in h6][4:]:
+                raise AssertionError(f"resume: {[m['loss'] for m in h2]} != "
+                                     f"{[m['loss'] for m in h6][4:]}")
+        with tempfile.TemporaryDirectory() as root:
+            t1 = strainer(root, "fz")
+            drive("resume", lambda: t1.run(4))
+            t2, _ = drive("resume", lambda: strainer(root, "fz"))
+            # every FZ leaf equals the plain route's round trip of the same leaf
+            # (the plain route's files are the reference's, byte for byte:
+            # tests/test_torch_train_resume.py); then each is held to its bound
+            plain = dataclasses.replace(checkpoint._FZ_CKPT, use_kernels=False)
+            worst, n_within, past = 0.0, 0, []
+            for (k, a), b in zip(pytree.leaves_with_keys(t2._state()),
+                                 pytree.leaves(t1._state())):
+                if a.dtype == torch.float32 and a.numel() >= checkpoint._MIN_FZ_SIZE:
+                    x = b.reshape(-1)
+                    want = rt.decompress(rt.compress(x, plain, device=dev), plain, device=dev)
+                    if not torch.equal(bits(a.reshape(-1)), bits(want)):
+                        raise AssertionError(f"fz restore: {k} differs from the plain route")
+                    eb = 1e-5 * float(x.max() - x.min())
+                    ratio = float((a.reshape(-1) - x).abs().max()) / eb
+                    if ratio <= 1.01 + 2e-2:        # the reference test's slack: 1% + 2e-7 range
+                        worst, n_within = max(worst, ratio), n_within + 1
+                    else:
+                        past.append(f"{k} {ratio:.3g} eb")
+                elif not torch.equal(bits(a), bits(b)):
+                    raise AssertionError(f"fz restore: raw leaf {k} differs")
+            if any(not k.startswith("['err']") for k in past):
+                raise AssertionError(f"fz restore: a leaf other than the error state past its "
+                                     f"bound: {past}")
+        for name in ("fused_compress", "fused_shuffle_encode", "fused_decompress"):
+            if launches["resume"][name] <= 0:
+                raise AssertionError(f"{name} was not launched on the resume path")
+        log(f"resume at {scfg.arch_id} ({sshape}) on the same pod mesh: 4 steps + restart + "
+            f"2 == 6 steps, losses bit for bit (raw codec); codec fz: every FZ leaf == the "
+            f"plain route's round trip bit for bit, {n_within} within their bound (max_err/eb "
+            f"{worst:.4f}), {len(past)} past it, as the reference's round trip of the same "
+            f"tree is (strict mode's outlier channel overflows on the residuals' noise): "
+            + ", ".join(past) + f"; the rest bit for bit; {time.time() - t_resume:.1f} s")
+    finally:
+        if fresh_group:
+            dist.destroy_process_group()
+
+    # -- (6) the launcher's entry point, twice on one directory: the second run
+    # resumes at step 4 (in this process, so its launches are counted)
+    import contextlib
+    import io
+    from repro_torch.launch import train as launch_train
+    step_line = re.compile(r"^step +(\d+) loss (\d+\.\d{4}) \((\d+\.\d\d)s\)$")
+    t_launch = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        outs = []
+        for steps in (4, 6):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                drive("launcher", lambda: launch_train.main([
+                    "--arch", "yi-6b", "--smoke", "--steps", str(steps), "--ckpt-codec", "fz",
+                    "--ckpt-dir", root]))
+            outs.append(buf.getvalue().splitlines())
+    head = "yi-6b-smoke: 0.4M params, mesh={'data': 1, 'model': 1}, reduce=exact, resume_step="
+    steps_seen = [[int(m[1]) for m in map(step_line.match, o[1:]) if m] for o in outs]
+    if (outs[0][0] != head + "0" or outs[1][0] != head + "4"
+            or steps_seen != [[0, 1, 2, 3], [4, 5]]
+            or not all(step_line.match(line) for o in outs for line in o[1:])):
+        raise AssertionError(f"the launcher printed {outs}")
+    log(f"launcher (repro_torch.launch.train.main, the entry point of python -m "
+        f"repro_torch.launch.train): --arch yi-6b --smoke --steps 4 --ckpt-codec fz --ckpt-dir "
+        f"D, then --steps 6: " + " | ".join(o[0] for o in outs) + f"; the reference's line "
+        f"format; {time.time() - t_launch:.1f} s")
+    for path, counts in launches.items():
+        log(f"launches on the {path} path: {counts}")
+    for path, names in (("train", ("fused_compress", "fused_decompress")),
+                        ("overlap", ("fused_compress", "fused_decompress")),
+                        ("resume", ("fused_compress", "fused_shuffle_encode",
+                                    "fused_decompress")),
+                        ("launcher", ("fused_shuffle_encode", "fused_decompress"))):
+        for name in names:
+            if launches[path][name] <= 0:
+                raise AssertionError(f"{name} was not launched on the {path} path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train phase done in {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def tune_phase(card, dev, serving, x) -> None:
     """Phase 13: the resource table and its gates, the tuner on the card's
     points and its gates, and "auto" / the engine on the tuned cache (phase
@@ -2232,6 +2713,7 @@ def main() -> int:
     tune_phase(card, dev, serving, fields["Hurricane-like smooth"])
     del serving, fields, flush
     wire = wire_phase(card, dev)
+    train = train_phase(card, dev)
     pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
     for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10
         row["max_abs_err"] = max_err[row["name"]]
@@ -2240,8 +2722,10 @@ def main() -> int:
                               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                               "bound_by": row["bound_by"]}, pages[row["name"]]]
     rows.append(k7_row)
-    for row in rows:                  # phase 14's launches, all its paths
+    for row in rows:                  # phase 14's launches, all its paths; phase 15's
         row["wire_launches"] = sum(counts[row["name"]] for counts in wire.values())
+        # every path of phase 15: the full-width steps and the smoke-size resume
+        row["train_launches"] = sum(counts[row["name"]] for counts in train.values())
     say(10, f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

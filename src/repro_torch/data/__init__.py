@@ -1,1 +1,2 @@
-"""Synthetic scientific fields (numpy), shared by the tests and chip_smoke.py."""
+"""Synthetic data (numpy): scientific fields (``fields``) and the token stream
+(``tokens``), shared by the tests, the trainer and chip_smoke.py."""

@@ -192,15 +192,17 @@ def _gather_fn():
     return getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
-def gather_bytes(t: torch.Tensor, group, tag: str) -> torch.Tensor:
+def gather_bytes(t: torch.Tensor, group, tag: str | None) -> torch.Tensor:
     """All-gather ``t`` over ``group`` as a ``uint8`` view -> ``(world, *t.shape)``
-    in ``t``'s dtype. Counts the output's bytes under ``tag``."""
+    in ``t``'s dtype. Counts the output's bytes under ``tag`` (nothing for None:
+    the trainer's loss and checkpoint gathers are not gradient traffic)."""
     import torch.distributed as dist
     world = dist.get_world_size(group)
     src = t.contiguous().reshape(-1).view(torch.uint8)
     out = torch.empty(world * src.numel(), dtype=torch.uint8, device=src.device)
     _gather_fn()(out, src, group=group)
-    obs.counter(_GATHERED, tag=tag).inc(out.numel())
+    if tag is not None:
+        obs.counter(_GATHERED, tag=tag).inc(out.numel())
     return out.view(world, -1).view(t.dtype).reshape((world,) + tuple(t.shape))
 
 

@@ -10,21 +10,77 @@ The rounding order is the reference's: ``rms_norm`` normalizes in float32,
 casts to the input type, then multiplies by the scale in that type; ``dense``
 multiplies in the operands' type with float32 accumulation and one rounding
 of the output (a bfloat16 GEMM accumulates in float32 on the card and on the
-CPU). The reference's sharding constraints, gradient taps and bfloat16-output
-switch belong to the distributed and training slices and are not here.
+CPU).
+
+Means are XLA's: a sum times ``float32(1 / n)`` (``mean``), the way XLA on the
+CPU computes the reference's ``jnp.mean``.
+
+Two hooks that ``train.step.build_train_step`` installs, both the identity
+unless installed:
+
+* ``set_act_sharder`` / ``shard_act``: the model names each activation's
+  logical axes at the reference's sites; a sharder may lay it out on a mesh.
+* ``set_grad_tap`` / ``grad_tap``: the model marks where each parameter group's
+  gradients become final; the overlap step installs its bucket reducer's tap
+  there for the forward (``dist.bucketed_reduce.BucketReducer``).
+
+The reference's bfloat16-output switch (``set_bf16_matmul_output``) waits for
+the dry-run tooling.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding constraints
+# ---------------------------------------------------------------------------
+
+_ACT_SHARDER: Callable[[torch.Tensor, tuple], torch.Tensor] | None = None
+
+
+def set_act_sharder(fn: Callable[[torch.Tensor, tuple], torch.Tensor] | None) -> None:
+    global _ACT_SHARDER
+    _ACT_SHARDER = fn
+
+
+def shard_act(x: torch.Tensor, logical: tuple) -> torch.Tensor:
+    """Apply an activation sharding constraint (identity when no sharder)."""
+    if _ACT_SHARDER is None:
+        return x
+    return _ACT_SHARDER(x, logical)
+
+
+# ---------------------------------------------------------------------------
+# Gradient-boundary taps
+# ---------------------------------------------------------------------------
+
+_GRAD_TAP: Callable[[Any, str], Any] | None = None
+
+
+def set_grad_tap(fn: Callable[[Any, str], Any] | None) -> None:
+    global _GRAD_TAP
+    _GRAD_TAP = fn
+
+
+def grad_tap(tree: Any, name: str = "") -> Any:
+    """Mark a parameter-group gradient boundary (identity unless installed)."""
+    if _GRAD_TAP is None:
+        return tree
+    return _GRAD_TAP(tree, name)
 
 
 @dataclasses.dataclass(frozen=True)
 class Param:
     shape: tuple[int, ...]
+    logical: tuple[str | None, ...] = ()   # logical axis per dim: "fsdp"|"tp"|None
     init: str = "normal"                 # "normal"|"ones"|"embed"|"scaled"
     dtype: torch.dtype = torch.bfloat16
 
@@ -77,6 +133,12 @@ def init_tree(defs: dict, generator: torch.Generator | None = None, *,
     return out
 
 
+def spec_tree(defs: dict) -> dict:
+    """The matching tree of logical-axis tuples (resolved against a mesh by
+    ``dist.sharding``)."""
+    return {k: spec_tree(v) if isinstance(v, dict) else v.logical for k, v in defs.items()}
+
+
 def param_count(defs: dict) -> int:
     total = 0
     for _, p in _leaves(defs):
@@ -97,6 +159,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
 
 
+def mean(x: torch.Tensor, dim: int | None = None, keepdim: bool = False) -> torch.Tensor:
+    """``jnp.mean`` as XLA computes it: the sum times ``float32(1 / n)``."""
+    n = x.numel() if dim is None else x.shape[dim]
+    total = torch.sum(x) if dim is None else torch.sum(x, dim=dim, keepdim=keepdim)
+    return total * float(np.float32(1.0 / n))
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = mean(xf, dim=-1, keepdim=True)
+    var = mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out) in x's type, float32 accumulation."""
     return torch.matmul(x, w.to(x.dtype))
@@ -115,5 +193,38 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return dense(silu(dense(x, w_gate)) * dense(x, w_up), w_down)
 
 
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """With ``gelu``, the reference's ``jax.nn.gelu`` (the tanh approximation)."""
+    h = gelu(dense(x, w_up) + b_up.to(x.dtype))
+    return dense(h, w_down) + b_down.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x)``: ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))``
+    op by op in x's type, each rounded to it, with both constants in that type,
+    as the reference computes it (``F.gelu`` rounds once, a few bfloat16 ulps
+    away)."""
+    c = torch.tensor(_SQRT_2_OVER_PI, dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
+
+
+_SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
+
+
 def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens.to(torch.int64)]
+    """Rows of ``table``. ``F.embedding``'s backward is a dense, deterministic
+    accumulation on the card (indexing's backward is an atomic ``index_put``)."""
+    return F.embedding(tokens.to(torch.int64), table)
+
+
+def sharded_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy in float32: the max is detached (the
+    reference's ``stop_gradient``), then the log-sum-exp, then the mean over
+    tokens."""
+    lf = logits.to(torch.float32)
+    m = torch.amax(lf, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    gold = torch.take_along_dim(lf, labels.to(torch.int64)[..., None], dim=-1)[..., 0]
+    return mean(lse - gold)

@@ -2,7 +2,8 @@
 
 Pre-RMSNorm, SwiGLU, full RoPE, grouped-query attention. Layer parameters are
 stacked ``[L, ...]`` and every forward pass is a Python loop over the stack.
-Serving entry points mirror the reference one for one:
+``forward_train`` gives the training loss; the serving entry points mirror the
+reference one for one:
 
 * ``forward_prefill`` -- prompt -> last-position logits + the K/V cache
   (``batch["lengths"]`` marks true lengths of right-padded prompts);
@@ -11,17 +12,20 @@ Serving entry points mirror the reference one for one:
 * ``forward_decode_paged`` -- one token against the pool's page view, through
   ``serve/kvpool/attention.paged_decode_attention`` (K7 when ``use_kernels``).
 
-MoE, M-RoPE and training wait for their slices (ROADMAP).
+MoE and M-RoPE wait for their slices (ROADMAP).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import nn
 from .attention import apply_rope, decode_attention, flash_attention, prefix_attention
 
 CACHE_MARGIN = 128  # decode slots past the prefill length
+DP = "fsdp"
+TP = "tp"
 
 
 def layer_defs(cfg: ArchConfig) -> dict:
@@ -31,24 +35,24 @@ def layer_defs(cfg: ArchConfig) -> dict:
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     return {
-        "attn_norm": nn.Param((L, d), init="ones"),
-        "wq": nn.Param((L, d, qd)),
-        "wk": nn.Param((L, d, kvd)),
-        "wv": nn.Param((L, d, kvd)),
-        "wo": nn.Param((L, qd, d)),
-        "mlp_norm": nn.Param((L, d), init="ones"),
-        "w_gate": nn.Param((L, d, cfg.d_ff)),
-        "w_up": nn.Param((L, d, cfg.d_ff)),
-        "w_down": nn.Param((L, cfg.d_ff, d)),
+        "attn_norm": nn.Param((L, d), (None, None), init="ones"),
+        "wq": nn.Param((L, d, qd), (None, DP, TP)),
+        "wk": nn.Param((L, d, kvd), (None, DP, TP)),
+        "wv": nn.Param((L, d, kvd), (None, DP, TP)),
+        "wo": nn.Param((L, qd, d), (None, TP, DP)),
+        "mlp_norm": nn.Param((L, d), (None, None), init="ones"),
+        "w_gate": nn.Param((L, d, cfg.d_ff), (None, DP, TP)),
+        "w_up": nn.Param((L, d, cfg.d_ff), (None, DP, TP)),
+        "w_down": nn.Param((L, cfg.d_ff, d), (None, TP, DP)),
     }
 
 
 def model_defs(cfg: ArchConfig) -> dict:
     return {
-        "embed": nn.Param((cfg.vocab, cfg.d_model), init="embed"),
+        "embed": nn.Param((cfg.vocab, cfg.d_model), (None, TP), init="embed"),
         "layers": layer_defs(cfg),
-        "final_norm": nn.Param((cfg.d_model,), init="ones"),
-        "unembed": nn.Param((cfg.d_model, cfg.vocab)),
+        "final_norm": nn.Param((cfg.d_model,), (None,), init="ones"),
+        "unembed": nn.Param((cfg.d_model, cfg.vocab), (DP, TP)),
     }
 
 
@@ -63,9 +67,12 @@ def _ffn(lp: dict, h: torch.Tensor) -> torch.Tensor:
 def _qkv(lp: dict, h: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor):
     B, S, _ = h.shape
     hd = cfg.hd
-    q = nn.dense(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = nn.dense(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = nn.dense(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = nn.shard_act(nn.dense(h, lp["wq"]).reshape(B, S, cfg.n_heads, hd),
+                     ("dp", None, "tp", None))
+    k = nn.shard_act(nn.dense(h, lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd),
+                     ("dp", None, "tp", None))
+    v = nn.shard_act(nn.dense(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd),
+                     ("dp", None, "tp", None))
     return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
 
 
@@ -75,6 +82,57 @@ def _logits_at(params: dict, cfg: ArchConfig, x: torch.Tensor,
     x_last = x[torch.arange(x.shape[0], device=x.device), lengths.to(torch.int64) - 1]
     return nn.dense(nn.rms_norm(x_last, params["final_norm"], cfg.norm_eps),
                     params["unembed"])
+
+
+def _block_train(lp: dict, x: torch.Tensor, cfg: ArchConfig,
+                 pos: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    x = nn.shard_act(x, ("dp", None, None))
+    h = nn.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(lp, h, cfg, pos)
+    o = flash_attention(q, k, v, causal=True)
+    x = x + nn.dense(o.reshape(B, S, -1), lp["wo"])
+    h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + _ffn(lp, h)
+
+
+def _positions(cfg: ArchConfig, batch: dict, S: int, B: int) -> torch.Tensor:
+    """Dense positions 0..S-1 for every row."""
+    return torch.arange(S, dtype=torch.int32, device=batch["tokens"].device).expand(B, S)
+
+
+def forward_train(params: dict, cfg: ArchConfig, batch: dict):
+    """batch: ``tokens`` and ``labels`` (B, S). Returns (loss, {"xent": loss}).
+
+    Parameter groups pass through ``nn.grad_tap`` at their use sites (embed,
+    the layer stack, final_norm, unembed), the reference's gradient
+    boundaries. The stack is split into layers with one ``torch.unbind`` a
+    leaf, whose backward stacks the layers' gradients once. With
+    ``cfg.remat`` each layer is recomputed in the backward pass
+    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` over
+    the reference's scan body). The reference adds ``0.01`` times the
+    layers' auxiliary losses, which are 0 in the dense family: the loss is
+    the cross entropy.
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = nn.shard_act(nn.embed_lookup(tokens, nn.grad_tap(params["embed"], "embed")),
+                     ("dp", None, None))
+    pos = _positions(cfg, batch, S, B)
+    stack = nn.grad_tap(params["layers"], "layers")
+    names = sorted(stack)
+    for slices in zip(*(torch.unbind(stack[n], 0) for n in names)):
+        lp = dict(zip(names, slices))
+        if cfg.remat:
+            x = checkpoint(_block_train, lp, x, cfg, pos, use_reentrant=False)
+        else:
+            x = _block_train(lp, x, cfg, pos)
+        x = nn.shard_act(x, ("dp", None, None))
+    x = nn.rms_norm(x, nn.grad_tap(params["final_norm"], "final_norm"), cfg.norm_eps)
+    logits = nn.shard_act(nn.dense(x, nn.grad_tap(params["unembed"], "unembed")),
+                          ("dp", None, "tp"))
+    loss = nn.sharded_xent(logits, batch["labels"])
+    return loss, {"xent": loss}
 
 
 def cache_len(S: int) -> int:

@@ -15,6 +15,11 @@ the plain route, the CPU route and the bucketed form over three steps;
 ``flash_decode_shard``'s per-shard K7 partials combined within 2e-4 of the
 plain attention; a ``codec="fz"`` checkpoint saved on the card (K5) equal to
 the CPU port's files, restored (K6) within the bound.
+
+Training on the card: two compressed steps at the smoke config, the kernel
+route equal to the plain route and to itself, bit for bit; the overlap form
+equal to the barrier form; the train launcher saving with K5 and resuming
+with K6 under ``--ckpt-codec fz``.
 """
 import os
 
@@ -633,3 +638,97 @@ def test_checkpoint_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert float((back[key].cpu() - x).abs().max()) <= eb * 1.01 + rng_ * 2e-7
     assert torch.equal(back["e"].cpu().view(torch.int16), tree["e"].view(torch.int16))
     assert torch.equal(back["step"].cpu(), tree["step"])
+
+
+def test_train_step_on_the_card_matches_the_plain_route(cuda):
+    """Two compressed training steps at the yi-6b smoke config, two pods in one
+    process (a stand-in pod mesh): the kernel route (K4, K6 once a leaf past
+    ``min_leaf_size`` and pod a step) equals the plain route bit for bit, and
+    the same run repeated equals itself (the step is deterministic)."""
+    import dataclasses
+    from repro_torch import configs, pytree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist import compressed_allreduce as car
+    from repro_torch.models import zoo
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = configs.get("yi-6b", smoke=True)
+    model = zoo.build(cfg)
+    shape = ShapeConfig("tiny", 64, 4, "train")
+    mesh = type("Mesh", (), {"axis_names": ("pod", "data", "model"),
+                             "shape": {"pod": 2, "data": 1, "model": 1}})()
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    gc = car.GradCompressionConfig(enabled=True, min_leaf_size=1024)
+    n_fz = sum(1 for t in pytree.leaves(model.abstract_params()) if t.numel() >= 1024)
+    states = []
+    for use_kernels in (True, False, True):
+        t = Trainer(model, shape, mesh, TrainConfig(grad_compress=dataclasses.replace(
+            gc, use_kernels=use_kernels), total_steps=4, warmup_steps=1),
+            stream=TokenStream(cfg.vocab, 64, 4, seed=0), init_params=params, device=cuda)
+        kernels.reset_launch_counts()
+        hist = t.run(2)
+        counts = kernels.launch_counts()
+        want = 2 * 2 * n_fz if use_kernels else 0
+        assert counts["fused_compress"] == counts["fused_decompress"] == want
+        assert all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in hist)
+        states.append(t._state())
+    _same_tree(states[0], states[1])
+    _same_tree(states[0], states[2])
+
+
+def test_overlap_step_on_the_card_equals_the_barrier_step(cuda):
+    """Two pods in one process, two steps, one and two microbatches: the
+    overlap form (each bucket issued from the backward on a side stream)
+    equals the barrier form bit for bit, and every bucket is issued from the
+    backward."""
+    import dataclasses
+    from repro_torch import configs, obs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist import bucketed_reduce as bkt
+    from repro_torch.dist import compressed_allreduce as car
+    from repro_torch.models import zoo
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = configs.get("yi-6b", smoke=True)
+    model = zoo.build(cfg)
+    shape = ShapeConfig("tiny", 64, 4, "train")
+    mesh = type("Mesh", (), {"axis_names": ("pod", "data", "model"),
+                             "shape": {"pod": 2, "data": 1, "model": 1}})()
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    gc = car.GradCompressionConfig(enabled=True, min_leaf_size=1024, bucket_bytes=1 << 16)
+    for n_micro in (1, 2):
+        states, early = [], 0
+        for overlap in (False, True):
+            t = Trainer(model, shape, mesh, TrainConfig(
+                grad_compress=dataclasses.replace(gc, overlap=overlap), total_steps=4,
+                warmup_steps=1, microbatches=n_micro),
+                stream=TokenStream(cfg.vocab, 64, 4, seed=0), init_params=params, device=cuda)
+            before = obs.counter(bkt.IN_BACKWARD).value
+            t.run(2)
+            early = obs.counter(bkt.IN_BACKWARD).value - before
+            states.append(t._state())
+        assert t.info["mode"] == "overlap" and early == 2 * t.info["plan"].n_buckets > 2
+        _same_tree(states[0], states[1])
+
+
+def test_train_launcher_on_the_card_saves_and_resumes_with_the_fz_codec(cuda, tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch yi-6b --smoke --ckpt-codec fz``
+    on the card: 2 steps, then 3 from the same directory. The save compresses
+    the large float32 leaves with K5, the restore decodes them with K6, and the
+    printed lines are the reference's."""
+    from repro_torch.launch import train as launch_train
+    root = str(tmp_path / "ck")
+    args = ["--arch", "yi-6b", "--smoke", "--seq", "32", "--batch", "4",
+            "--ckpt-codec", "fz", "--ckpt-dir", root]
+    kernels.reset_launch_counts()
+    launch_train.main(args + ["--steps", "2"])
+    saved = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    hist = launch_train.main(args + ["--steps", "3"])
+    resumed = kernels.launch_counts()
+    out = capsys.readouterr().out.splitlines()
+    head = "yi-6b-smoke: 0.4M params, mesh={'data': 1, 'model': 1}, reduce=exact, resume_step="
+    assert [line for line in out if line.startswith("yi-6b")] == [head + "0", head + "2"]
+    assert [m["step"] for m in hist] == [2] and np.isfinite(hist[0]["loss"])
+    assert saved["fused_shuffle_encode"] > 0 and resumed["fused_decompress"] > 0
+    assert saved["fused_compress"] == resumed["fused_compress"] == 0     # no pod axis

@@ -4,7 +4,8 @@
   reference package ``repro`` (an AST walk, and an import in a subprocess
   where both are blocked).
 * The entry points raise without a card unless given ``device="cpu"``: the
-  compressor's, K7's, the model init, the pool, the engine and the launcher.
+  compressor's, K7's, the model init, the pool, the engine, the wire and
+  checkpoints, the meshes, the train step, the trainer and both launchers.
 * ``kernel_mode="staged"`` runs on the CPU on request, through the plain
   versions of K1-K3.
 * A kernel wrapper takes its plain version only for a CPU tensor and never
@@ -31,7 +32,12 @@ from repro_torch.dist import flash_decode as fdp
 from repro_torch.core import shuffle
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data.tokens import TokenStream
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
+from repro_torch.train import TrainConfig, Trainer, build_train_step
 from repro_torch.models import nn as tnn
 from repro_torch.models import zoo
 from repro_torch.serve import Engine, PagePool, PoolConfig
@@ -89,6 +95,9 @@ def _attn_inputs():
 
 
 SMOKE = configs.get("yi-6b", smoke=True)
+SHAPE = ShapeConfig("tiny", 8, 2, "train")
+_STAND_IN = type("Mesh", (), {"axis_names": ("data", "model"),
+                              "shape": {"data": 1, "model": 1}})()
 NEVER_WRITTEN = os.path.join(tempfile.gettempdir(), "repro_torch_hygiene_never_written")
 
 
@@ -127,6 +136,17 @@ ENTRY_POINTS = {
         *_attn_inputs(), mesh=None, axis="model", shard_offset=0),
     "ckpt.save": lambda x, c: ckpt.save(NEVER_WRITTEN, 1, {"x": torch.from_numpy(x)}),
     "ckpt.restore": lambda x, c: ckpt.restore(NEVER_WRITTEN, {"x": torch.from_numpy(x)}),
+    "launch.mesh.make_mesh": lambda x, c: launch_mesh.make_mesh((1, 1, 1),
+                                                                ("pod", "data", "model")),
+    "make_local_mesh": lambda x, c: launch_mesh.make_local_mesh(),
+    "make_production_mesh": lambda x, c: launch_mesh.make_production_mesh(),
+    "start_local_group": lambda x, c: launch_mesh.start_local_group(),
+    "build_train_step": lambda x, c: build_train_step(
+        zoo.build(SMOKE), SHAPE, _STAND_IN, TrainConfig()),
+    "Trainer": lambda x, c: Trainer(zoo.build(SMOKE), SHAPE, _STAND_IN, TrainConfig(),
+                                    stream=TokenStream(512, 8, 2)),
+    "launch.train": lambda x, c: launch_train.main(["--arch", "yi-6b", "--smoke",
+                                                    "--steps", "1"]),
 }
 
 
