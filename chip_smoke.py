@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port end to end on one CUDA card: the FZ compressor, the
 serving path (Yi-6B over the paged FZ KV pool with K7 flash-decode), the
-gradient wire and checkpoints, and training (Yi-6B's width, K4/K6 in the
-compressed gradient mean of every step).
+gradient wire and checkpoints, training (Yi-6B's width, K4/K6 in the
+compressed gradient mean of every step), and the MoE and M-RoPE decoders
+(dbrx-132b, llama4-scout-17b-a16e, qwen2-vl-72b at their published widths).
 
     python3 chip_smoke.py          # from the root of the repository, on a card
 
@@ -210,6 +211,34 @@ Phases (each prints its own lines):
      with the card's name and power limit; the ``kernels`` JSON gives each
      kernel's launches over the phase as ``train_launches``.
 
+  16. the MoE and M-RoPE decoders (``models/moe.py``, ``attention.apply_mrope``),
+     after phase 15, one model at a time, each at its published width with its
+     depth cut to 2 layers, random bfloat16 weights (the router float32) from a
+     ``torch.Generator`` seeded 0 on the card. (a) dbrx-132b (48 query heads
+     over 8 KV heads: K7 at G 6; 16 experts, top-4) and (b) llama4-scout-17b-a16e
+     (40 over 8: G 5; 16 experts, top-1, a shared expert) each serve phase 8's
+     trace and pool on the kernel route (K7, K4 parking, K6 cold reads) and the
+     plain route with phase 8's gates: identical ``TraceStats``, every parked
+     page within its bound, K7 once a layer a decode step, K4 and K6 launched
+     on the kernel route and no kernel on the plain one, teacher-forced token
+     agreement of at least 0.9 with every disagreement at a near tie, and the
+     kernel route's logits on a gathered page set within ``LOGIT_REL_TOL`` of
+     both plain decodes. Printed: tokens/s, ms a decode step, the device split
+     of one gather + decode step under torch.profiler (the expert einsums and
+     the router with its dispatch masks attributed by their ``moe.experts`` /
+     ``moe.route`` ranges; K7, K6, the page gather, the other GEMMs), the idle
+     share and the peak memory. (c) qwen2-vl-72b (M-RoPE): ``make_pool``
+     refuses the paged pool, and ``Engine.generate(park_between=True)``, batch
+     2, prompt 512, 16 tokens, position ids broadcast on t/h/w as the launcher
+     does, parks the cache through K4 and resumes it through K6 each step: the
+     kernel route's tokens, cache and every parked container equal the plain
+     route's bit for bit, and every parked leaf holds its bound. (d) Two
+     ``Trainer`` steps of dbrx-132b SMOKE on the one-rank NCCL pod mesh with the
+     barrier compressed reduce (K4/K6 once a leaf past ``min_leaf_size``):
+     params, optimizer and error state of the kernel route equal the plain
+     route's bit for bit. The ``kernels`` JSON gives each kernel's launches on
+     each of these paths as ``zoo_launches``.
+
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
 ``dense`` accumulates; the port's modules change no global state.
@@ -264,6 +293,10 @@ K7_CASES = [
     # rows of 24 bytes, not a multiple of 16: copied by plain loads, not cp.async
     (2, 8, 2, 12, 5, 7, "bfloat16", [0, 30], None, 0),
     (3, 4, 4, 6, 50, 0, "float32", [50, 13, 0], 16, 0),
+    # phase 16's group sizes, which do not divide the 32 lane groups: dbrx-132b
+    # (48 heads over 8 KV heads, G 6) and llama4-scout-17b-a16e (40 over 8, G 5)
+    (4, 48, 8, 128, 13, 64, "bfloat16", [0, 100, 128, 832], None, 0),
+    (4, 40, 8, 128, 13, 64, "bfloat16", [64, 5, 500, 900], None, 0),
 ]
 # K6 at its edge shapes: rows longer than a tile, rows of one element, the
 # serving page (a flattened bfloat16 page of 2 x 32 layers x 64 x 4 x 128)
@@ -343,6 +376,13 @@ TRAIN_SHAPE = ("local", 4096, 2, "train")         # ShapeConfig: 8,192 tokens a 
 TRAIN_TIMED = 4                                   # timed steps of each form, in turn
 TRAIN_PEAK_LIMIT = 70e9                           # bytes allocated; past it the batch is cut
 FLASH_LENGTHS = [600, 417, 208, 1]
+# phase 16: the MoE and M-RoPE decoders at their published widths, cut to 2 layers
+ZOO_SERVED = ("dbrx-132b", "llama4-scout-17b-a16e")
+ZOO_VLM = "qwen2-vl-72b"
+ZOO_LAYERS = 2
+VLM_GENERATE = (2, 512, 16)                       # batch, prompt, tokens (phase 9's)
+ZOO_TRAIN_SHAPE = ("local", 128, 4, "train")      # dbrx SMOKE: 512 tokens a step
+ZOO_TRAIN_STEPS = 2
 
 
 def say(phase, msg):
@@ -375,6 +415,22 @@ def breakdown(fn, iters=5):
     return ", ".join(f"{name} {count:g}x {us:.1f} us" for name, count, us in rows[:6])
 
 
+def cuda_ms(fn, iters=20, warmup=3):
+    """Time per call between CUDA events around back-to-back calls: the larger
+    of the device time and the host time of a call."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def outlier_slots(n, kind, seed, dev):
     """K6 outlier slots in no order: 'few' (repeats, fill slots at n, tiles under
     their bin), 'many' (about 300 a tile: every bin overflows) or 'one_tile'
@@ -394,6 +450,204 @@ def outlier_slots(n, kind, seed, dev):
             torch.from_numpy(val.astype(np.int32)).to(dev))
 
 
+def serve_trace(model, params, dev, trace_cfg, use_kernels, parked=None, teacher=None,
+                paged=None, record=None):
+    """A tracegen trace through ``Engine.serve`` on one route, with phase 8's pool
+    (``SERVE_POOL``) and lanes. ``parked`` collects each parked page's raw
+    data; ``teacher`` collects, at each step of the plain contiguous decode, the
+    kernel route's decode on the same cache and tokens; ``paged`` overrides the
+    decode wiring (the plain paged partials); ``record`` gets the registry
+    snapshot of the run (reset before it). Returns (outputs, stats, pool,
+    seconds)."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.serve import Engine, PoolConfig
+    from repro_torch.serve.kvpool import ContinuousBatcher, tracegen
+
+    eng = Engine(model, params, pool=PoolConfig(**SERVE_POOL, use_kernels=use_kernels),
+                 device=dev)
+    pool = eng.make_pool()
+    if parked is not None:
+        store = pool._park_store
+
+        def park_store(page, comp):
+            parked.append((pool.slots[page.slot].clone(), comp, pool.eb_abs))
+            store(page, comp)
+        pool._park_store = park_store
+    if teacher is not None:
+        step = eng.decode_step
+
+        def decode_step(cache, tokens):
+            logits, new_cache = step(cache, tokens)
+            L, B, S, KVH, hd = cache["k"].shape
+            ps = SERVE_POOL["page_size"]
+            pages = {"k": cache["k"].reshape(L, B, S // ps, ps, KVH, hd),
+                     "v": cache["v"].reshape(L, B, S // ps, ps, KVH, hd),
+                     "length": cache["length"]}
+            lk, _ = model.decode_paged(params, pages, tokens, use_kernels=True)
+            act = cache["length"] > 0
+            lp, lk = logits.float()[act], lk.float()[act]
+            top2 = lp.topk(2, dim=-1).values
+            differ = lk.argmax(-1) != lp.argmax(-1)
+            teacher.append((int(act.sum()), int(differ.sum()),
+                            float((lk - lp).abs().max()),
+                            (top2[:, 0] - top2[:, 1])[differ].tolist()))
+            return logits, new_cache
+        eng.decode_step = decode_step
+    if record is not None:
+        obs.reset()
+        obs.clear_events()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if paged is None:
+        out, stats, pool = eng.serve(tracegen.generate(trace_cfg), max_batch=SERVE_LANES,
+                                     pool=pool)
+    else:
+        batcher = ContinuousBatcher(eng, pool, max_batch=SERVE_LANES)
+        batcher.paged_decode = paged
+        out, stats = batcher.run(tracegen.generate(trace_cfg))
+    torch.cuda.synchronize()
+    if record is not None:
+        record["snapshot"] = obs.snapshot()
+    return out, stats, pool, time.perf_counter() - t
+
+
+def hold_served(phase, card, dev, model, params, trace_cfg, drive, launches,
+                record=None) -> dict:
+    """Phase 8's gates on one model: the trace on the kernel route (through
+    ``drive``, which counts its launches into ``launches``) completes and drains
+    the pool, preempts, tiers and reads cold pages; K7 launches once a layer a
+    decode step and K4/K6 run; every parked page is within its bound; the plain
+    route's ``TraceStats`` are identical; teacher-forced greedy tokens agree in
+    at least ``TOKEN_AGREEMENT`` of lane-steps, every disagreement at a near
+    tie; the plain route launches no kernel. Returns both runs' outputs, stats
+    and seconds."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import fz
+    from repro_torch.serve.kvpool import tracegen
+
+    cfg = model.cfg
+    reqs = tracegen.generate(trace_cfg)
+    parked = []
+    out_k, st_k, pool_k, wall_k = drive(
+        lambda: serve_trace(model, params, dev, trace_cfg, True, parked))
+    n_tok = sum(len(v) for v in out_k.values())
+    say(phase, f"{card} | {cfg.arch_id} kernel route: {st_k.completed} requests, {n_tok} "
+               f"tokens in {st_k.decode_steps} decode steps, {wall_k:.2f} s ({n_tok / wall_k:.1f} "
+               f"tokens/s, {1e3 * wall_k / st_k.decode_steps:.1f} ms a decode step, prefills "
+               f"included); {st_k.admissions} admissions, {st_k.preemptions} preemptions, "
+               f"{st_k.resumes} resumes, {st_k.tiered_pages} tiered pages, "
+               f"{st_k.pool_compressions} compressions, {st_k.pool_decompressions} cold reads, "
+               f"{st_k.prefix_hits} prefix hits, {st_k.cow_promotions} CoW; latency (steps) "
+               f"{tracegen.latency_summary(st_k)}; launches {launches}")
+    if st_k.completed != len(reqs) or pool_k.pages or pool_k.n_free_slots() != pool_k.cfg.num_pages:
+        raise AssertionError("the serving trace did not complete and drain the pool")
+    if st_k.preemptions < 1 or st_k.pool_decompressions < 1 or st_k.tiered_pages < 1:
+        raise AssertionError("the serving trace forced no preemption, tiering or cold read: "
+                             "lower num_pages")
+    if launches["flash_decode"] != st_k.decode_steps * cfg.n_layers:
+        raise AssertionError(f"K7 launched {launches['flash_decode']} times, not decode steps "
+                             f"x layers = {st_k.decode_steps * cfg.n_layers}")
+    if launches["fused_compress"] <= 0 or launches["fused_decompress"] <= 0:
+        raise AssertionError("the pool did not compress through K4 and read through K6")
+    plain_fz = fz.FZConfig(exact_outliers=False, use_kernels=False)
+    worst = 0.0
+    for raw, comp, eb_abs in parked:
+        x = raw.reshape(-1).float()
+        rec = fz.decompress(comp, plain_fz)
+        err, eb = float((x - rec).abs().max()), float(eb_abs)
+        limit = eb * (1 + 2**-20) + float(x.abs().max()) * 2**-22
+        if not err <= limit:
+            raise AssertionError(f"a parked page breaks the error bound: max_err {err} > {limit}")
+        worst = max(worst, err / eb)
+    say(phase, f"all {len(parked)} parked pages within the bound (eb_abs "
+               f"{float(parked[0][2]):.4g}; worst max_err/eb {worst:.6f})")
+    del parked
+
+    kernels.reset_launch_counts()
+    out_p, st_p, _, wall_p = serve_trace(model, params, dev, trace_cfg, False, record=record)
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the plain route launched kernels: {kernels.launch_counts()}")
+    for f in SCHED_FIELDS:
+        if getattr(st_p, f) != getattr(st_k, f):
+            raise AssertionError(f"TraceStats.{f} differs: kernel {getattr(st_k, f)} vs plain "
+                                 f"{getattr(st_p, f)}")
+    if st_p != st_k:
+        raise AssertionError(f"TraceStats differ: kernel {st_k} vs plain {st_p}")
+    say(phase, f"{card} | {cfg.arch_id} plain route: {wall_p:.2f} s ({n_tok / wall_p:.1f} "
+               f"tokens/s); TraceStats identical, every scheduling count and the byte "
+               f"high-water marks (used / demand / logical): kernel {st_k.high_water_used_bytes}"
+               f" / {st_k.high_water_demand_bytes} / {st_k.high_water_logical_bytes}, plain "
+               f"{st_p.high_water_used_bytes} / {st_p.high_water_demand_bytes} / "
+               f"{st_p.high_water_logical_bytes}")
+
+    teacher = []
+    out_t, _, _, _ = serve_trace(model, params, dev, trace_cfg, False, teacher=teacher)
+    steps = sum(n for n, _, _, _ in teacher)
+    differ = sum(d for _, d, _, _ in teacher)
+    d_max = max(d for _, _, d, _ in teacher)
+    gaps = sorted(g for _, _, _, gs in teacher for g in gs)
+    tf_agree = 1 - differ / steps
+    say(phase, f"{card} | {cfg.arch_id} tokens, teacher-forced (the kernel route's decode on "
+               f"the plain run's cache and tokens at every step): same greedy token in "
+               f"{tf_agree:.4f} of {steps} lane-steps (bar {TOKEN_AGREEMENT}); top-2 gaps of the "
+               f"plain logits where they differ {gaps}; max|logits kernel - plain| {d_max:.4g}")
+    if any(not np.array_equal(out_t[i], out_p[i]) for i in out_p):
+        raise AssertionError("the teacher-forced plain run is not the plain run")
+    if tf_agree < TOKEN_AGREEMENT:
+        raise AssertionError(f"teacher-forced token agreement {tf_agree} < {TOKEN_AGREEMENT}")
+    if gaps and gaps[-1] > d_max:
+        raise AssertionError(f"the routes pick different tokens at a top-2 gap of {gaps[-1]}, "
+                             f"beyond the logit difference {d_max}: not a near tie")
+    return {"out_k": out_k, "out_p": out_p, "stats": st_k, "plain_stats": st_p,
+            "wall_k": wall_k, "wall_p": wall_p, "n_tok": n_tok, "tf_agree": tf_agree}
+
+
+def page_set(phase, dev, model, params, reqs) -> dict:
+    """One gathered page set: ``SERVE_LANES`` lanes holding the first prompts of
+    the trace, the older half of each sequence's pages parked (cold). The kernel
+    route's decode logits on it are held within ``LOGIT_REL_TOL`` of the plain
+    paged and the plain contiguous decode. Returns the engines, pool, pages,
+    lanes and tokens, for the timings."""
+    import torch
+    from repro_torch.serve import Engine, PoolConfig
+
+    eng_k = Engine(model, params, pool=PoolConfig(**SERVE_POOL), device=dev)
+    eng_p = Engine(model, params, pool=PoolConfig(**SERVE_POOL, use_kernels=False), device=dev)
+    pool = Engine(model, params, pool=PoolConfig(**{**SERVE_POOL, "num_pages": 64}),
+                  device=dev).make_pool()
+    first = []
+    for i, r in enumerate(reqs[:SERVE_LANES]):
+        logits, cache = eng_k.prefill({"tokens": torch.as_tensor(r.tokens, device=dev)[None]})
+        pool.write_prefill(i, cache["k"], cache["v"], len(r.tokens), step=0)
+        pids = [p.page_id for p in pool.pages_of(i)]
+        pool.compress_pages(pids[: len(pids) // 2])
+        first.append(int(torch.argmax(logits[0])))
+    lanes = list(range(SERVE_LANES))
+    tokens = torch.tensor(first, dtype=torch.int32, device=dev)
+    pages = pool.gather_pages(lanes)
+    lk, (kk, vk) = eng_k.decode_step_paged(pages, tokens)
+    lp, (kp, vp) = eng_p.decode_step_paged(pages, tokens)
+    lc, _ = eng_p.decode_step(pool.gather(lanes), tokens)
+    scale = float(lp.float().abs().max())
+    d_kp = float((lk.float() - lp.float()).abs().max())
+    d_kc = float((lk.float() - lc.float()).abs().max())
+    same_top = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    say(phase, f"{model.cfg.arch_id} teacher-forced decode step on {SERVE_LANES} lanes (lengths "
+               f"{pages['length'].tolist()}, "
+               f"{sum(p.state == 'compressed' for p in pool.pages.values())} cold pages): "
+               f"max|logits kernel - plain paged| {d_kp:.4g}, kernel - plain contiguous "
+               f"{d_kc:.4g}, max|logit| {scale:.4g} (tolerance {LOGIT_REL_TOL} x max|logit|); "
+               f"same argmax in {same_top:.2f} of lanes; step K/V max diff "
+               f"{float((kk.float() - kp.float()).abs().max()):.4g}")
+    if not (d_kp <= LOGIT_REL_TOL * scale and d_kc <= LOGIT_REL_TOL * scale):
+        raise AssertionError("teacher-forced logits of the kernel route differ from the plain "
+                             "route beyond the tolerance")
+    return {"eng_k": eng_k, "eng_p": eng_p, "pool": pool, "pages": pages, "lanes": lanes,
+            "tokens": tokens}
+
+
 def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
                    cold_ms) -> tuple[dict, dict, dict, dict]:
     """Phases 7-10: K7 against its plain version, the Yi-6B serving trace on both
@@ -403,13 +657,12 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch import configs, kernels, obs
-    from repro_torch.core import fz
+    from repro_torch import configs, kernels
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
     from repro_torch.models import zoo
-    from repro_torch.serve import Engine, KVCompressionConfig, PoolConfig
-    from repro_torch.serve.kvpool import ContinuousBatcher, tracegen
+    from repro_torch.serve import Engine, KVCompressionConfig
+    from repro_torch.serve.kvpool import tracegen
 
     # -- 7. K7 against its plain version ---------------------------------------
     t0 = time.time()
@@ -465,167 +718,25 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
     reqs = tracegen.generate(trace_cfg)
     say(8, "trace: " + ", ".join(f"req {r.req_id}: prompt {len(r.tokens)} new {r.n_new} "
                                  f"prio {r.priority} at {r.arrive_at}" for r in reqs))
-
-    def serve(use_kernels, parked=None, teacher=None, paged=None, record=None):
-        """The trace through ``Engine.serve`` on one route. ``parked`` collects each
-        parked page's raw data; ``teacher`` collects, at each step of the plain
-        contiguous decode, the kernel route's decode on the same cache and tokens;
-        ``paged`` overrides the decode wiring (the plain paged partials);
-        ``record`` gets the registry snapshot of the run (reset before it)."""
-        eng = Engine(model, params, pool=PoolConfig(**SERVE_POOL, use_kernels=use_kernels),
-                     device=dev)
-        pool = eng.make_pool()
-        if parked is not None:
-            store = pool._park_store
-
-            def park_store(page, comp):
-                parked.append((pool.slots[page.slot].clone(), comp, pool.eb_abs))
-                store(page, comp)
-            pool._park_store = park_store
-        if teacher is not None:
-            step = eng.decode_step
-
-            def decode_step(cache, tokens):
-                logits, new_cache = step(cache, tokens)
-                L, B, S, KVH, hd = cache["k"].shape
-                ps = SERVE_POOL["page_size"]
-                pages = {"k": cache["k"].reshape(L, B, S // ps, ps, KVH, hd),
-                         "v": cache["v"].reshape(L, B, S // ps, ps, KVH, hd),
-                         "length": cache["length"]}
-                lk, _ = model.decode_paged(params, pages, tokens, use_kernels=True)
-                act = cache["length"] > 0
-                lp, lk = logits.float()[act], lk.float()[act]
-                top2 = lp.topk(2, dim=-1).values
-                differ = lk.argmax(-1) != lp.argmax(-1)
-                teacher.append((int(act.sum()), int(differ.sum()),
-                                float((lk - lp).abs().max()),
-                                (top2[:, 0] - top2[:, 1])[differ].tolist()))
-                return logits, new_cache
-            eng.decode_step = decode_step
-        if record is not None:
-            obs.reset()
-            obs.clear_events()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if paged is None:
-            out, stats, pool = eng.serve(tracegen.generate(trace_cfg), max_batch=SERVE_LANES,
-                                         pool=pool)
-        else:
-            batcher = ContinuousBatcher(eng, pool, max_batch=SERVE_LANES)
-            batcher.paged_decode = paged
-            out, stats = batcher.run(tracegen.generate(trace_cfg))
-        torch.cuda.synchronize()
-        if record is not None:
-            record["snapshot"] = obs.snapshot()
-        return out, stats, pool, time.perf_counter() - t
-
-    parked = []
-    out_k, st_k, pool_k, wall_k = drive("serving", lambda: serve(True, parked))
-    launches = path_launches["serving"]
-    n_tok = sum(len(v) for v in out_k.values())
-    say(8, f"{card} | kernel route: {st_k.completed} requests, {n_tok} tokens in "
-           f"{st_k.decode_steps} decode steps, {wall_k:.2f} s ({n_tok / wall_k:.1f} tokens/s, "
-           f"{1e3 * wall_k / st_k.decode_steps:.1f} ms a decode step, prefills included); "
-           f"{st_k.admissions} admissions, {st_k.preemptions} preemptions, {st_k.resumes} "
-           f"resumes, {st_k.tiered_pages} tiered pages, {st_k.pool_compressions} compressions, "
-           f"{st_k.pool_decompressions} cold reads, {st_k.prefix_hits} prefix hits, "
-           f"{st_k.cow_promotions} CoW; latency (steps) {tracegen.latency_summary(st_k)}; "
-           f"launches {launches}")
-    if st_k.completed != len(reqs) or pool_k.pages or pool_k.n_free_slots() != pool_k.cfg.num_pages:
-        raise AssertionError("the serving trace did not complete and drain the pool")
-    if st_k.preemptions < 1 or st_k.pool_decompressions < 1 or st_k.tiered_pages < 1:
-        raise AssertionError("the serving trace forced no preemption, tiering or cold read: "
-                             "lower num_pages")
-    if launches["flash_decode"] != st_k.decode_steps * cfg.n_layers:
-        raise AssertionError(f"K7 launched {launches['flash_decode']} times, not decode steps "
-                             f"x layers = {st_k.decode_steps * cfg.n_layers}")
-    if launches["fused_compress"] <= 0 or launches["fused_decompress"] <= 0:
-        raise AssertionError("the pool did not compress through K4 and read through K6")
-    plain_fz = fz.FZConfig(exact_outliers=False, use_kernels=False)
-    worst = 0.0
-    for raw, comp, eb_abs in parked:
-        x = raw.reshape(-1).float()
-        rec = fz.decompress(comp, plain_fz)
-        err, eb = float((x - rec).abs().max()), float(eb_abs)
-        limit = eb * (1 + 2**-20) + float(x.abs().max()) * 2**-22
-        if not err <= limit:
-            raise AssertionError(f"a parked page breaks the error bound: max_err {err} > {limit}")
-        worst = max(worst, err / eb)
-    say(8, f"all {len(parked)} parked pages within the bound (eb_abs {float(parked[0][2]):.4g}; "
-           f"worst max_err/eb {worst:.6f})")
-    del parked
-
     plain_obs = {}
-    out_p, st_p, _, wall_p = serve(False, record=plain_obs)
-    for f in SCHED_FIELDS:
-        if getattr(st_p, f) != getattr(st_k, f):
-            raise AssertionError(f"TraceStats.{f} differs: kernel {getattr(st_k, f)} vs plain "
-                                 f"{getattr(st_p, f)}")
-    if st_p != st_k:
-        raise AssertionError(f"TraceStats differ: kernel {st_k} vs plain {st_p}")
-    say(8, f"{card} | plain route: {wall_p:.2f} s ({n_tok / wall_p:.1f} tokens/s); TraceStats "
-           f"identical, every scheduling count and the byte high-water marks (used / demand / "
-           f"logical): kernel {st_k.high_water_used_bytes} / {st_k.high_water_demand_bytes} / "
-           f"{st_k.high_water_logical_bytes}, plain {st_p.high_water_used_bytes} / "
-           f"{st_p.high_water_demand_bytes} / {st_p.high_water_logical_bytes}")
+    held = hold_served(8, card, dev, model, params, trace_cfg,
+                       lambda fn: drive("serving", fn), path_launches["serving"],
+                       record=plain_obs)
+    st_p = held["plain_stats"]
 
     def agreement(a, b):
         return float(np.mean([float((a[i] == b[i]).mean()) for i in a]))
 
-    teacher = []
-    out_t, _, _, _ = serve(False, teacher=teacher)
-    out_pp, _, _, _ = serve(False, paged=True)
-    steps = sum(n for n, _, _, _ in teacher)
-    differ = sum(d for _, d, _, _ in teacher)
-    d_max = max(d for _, _, d, _ in teacher)
-    gaps = sorted(g for _, _, _, gs in teacher for g in gs)
-    tf_agree = 1 - differ / steps
-    say(8, f"{card} | tokens, teacher-forced (the kernel route's decode on the plain run's cache "
-           f"and tokens at every step): same greedy token in {tf_agree:.4f} of {steps} "
-           f"lane-steps (bar {TOKEN_AGREEMENT}); top-2 gaps of the plain logits where they "
-           f"differ {gaps}; max|logits kernel - plain| {d_max:.4g}. Free-running (not gated): "
-           f"kernel vs plain route {agreement(out_k, out_p):.4f}; two plain routes, paged "
-           f"partials vs contiguous, {agreement(out_pp, out_p):.4f}")
-    if agreement(out_t, out_p) != 1.0:
-        raise AssertionError("the teacher-forced plain run is not the plain run")
-    if tf_agree < TOKEN_AGREEMENT:
-        raise AssertionError(f"teacher-forced token agreement {tf_agree} < {TOKEN_AGREEMENT}")
-    if gaps and gaps[-1] > d_max:
-        raise AssertionError(f"the routes pick different tokens at a top-2 gap of {gaps[-1]}, "
-                             f"beyond the logit difference {d_max}: not a near tie")
+    out_pp, _, _, _ = serve_trace(model, params, dev, trace_cfg, False, paged=True)
+    say(8, f"{card} | free-running tokens (not gated): kernel vs plain route "
+           f"{agreement(held['out_k'], held['out_p']):.4f}; two plain routes, paged partials "
+           f"vs contiguous, {agreement(out_pp, held['out_p']):.4f}")
 
     # one gathered page set: 4 lanes, the first 4 prompts, the older half of each
     # sequence's pages parked (cold)
-    eng_k = Engine(model, params, pool=PoolConfig(**SERVE_POOL), device=dev)
-    eng_p = Engine(model, params, pool=PoolConfig(**SERVE_POOL, use_kernels=False), device=dev)
-    pool = PoolConfig(**{**SERVE_POOL, "num_pages": 64})
-    pool = Engine(model, params, pool=pool, device=dev).make_pool()
-    first = []
-    for i, r in enumerate(reqs[:SERVE_LANES]):
-        logits, cache = eng_k.prefill({"tokens": torch.as_tensor(r.tokens, device=dev)[None]})
-        pool.write_prefill(i, cache["k"], cache["v"], len(r.tokens), step=0)
-        pids = [p.page_id for p in pool.pages_of(i)]
-        pool.compress_pages(pids[: len(pids) // 2])
-        first.append(int(torch.argmax(logits[0])))
-    lanes = list(range(SERVE_LANES))
-    tokens = torch.tensor(first, dtype=torch.int32, device=dev)
-    pages = pool.gather_pages(lanes)
-    lk, (kk, vk) = eng_k.decode_step_paged(pages, tokens)
-    lp, (kp, vp) = eng_p.decode_step_paged(pages, tokens)
-    lc, _ = eng_p.decode_step(pool.gather(lanes), tokens)
-    scale = float(lp.float().abs().max())
-    d_kp = float((lk.float() - lp.float()).abs().max())
-    d_kc = float((lk.float() - lc.float()).abs().max())
-    same_top = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    say(8, f"teacher-forced decode step on {SERVE_LANES} lanes (lengths "
-           f"{pages['length'].tolist()}, {sum(p.state == 'compressed' for p in pool.pages.values())}"
-           f" cold pages): max|logits kernel - plain paged| {d_kp:.4g}, kernel - plain "
-           f"contiguous {d_kc:.4g}, max|logit| {scale:.4g} (tolerance {LOGIT_REL_TOL} x max|logit|"
-           f"); same argmax in {same_top:.2f} of lanes; step K/V max diff "
-           f"{float((kk.float() - kp.float()).abs().max()):.4g}")
-    if not (d_kp <= LOGIT_REL_TOL * scale and d_kc <= LOGIT_REL_TOL * scale):
-        raise AssertionError("teacher-forced logits of the kernel route differ from the plain "
-                             "route beyond the tolerance")
+    pset = page_set(8, dev, model, params, reqs)
+    eng_k, eng_p, pool, pages, lanes, tokens = (pset[k] for k in (
+        "eng_k", "eng_p", "pool", "pages", "lanes", "tokens"))
     say(8, f"serving phase done in {time.time() - t0:.1f} s")
 
     # -- 9. the whole-cache path -------------------------------------------------
@@ -891,29 +1002,37 @@ def _strip_instance(key: str) -> str:
     return name + ("{" + ",".join(kept) + "}" if kept else "")
 
 
-def k7_inside_ranges(doc: dict, range_name: str) -> tuple[int, int]:
-    """(K7 kernel events, how many of them lie inside a ``range_name`` range) in
-    a torch.profiler Chrome trace: the kernel's launch (matched by correlation
-    id) inside the CPU range, or the kernel inside the range's GPU projection."""
+def kernels_by_range(doc: dict, names) -> list[tuple[str, float, str | None]]:
+    """Each kernel of a torch.profiler Chrome trace as (name, device us, the
+    ``names`` range that holds it, or None): the range whose CPU span holds
+    the kernel's launch (matched by correlation id), or whose GPU projection
+    holds the kernel."""
     evs = doc["traceEvents"]
-    kernels = [e for e in evs if e.get("cat") == "kernel" and "flash_decode" in e["name"]]
     launches = {e["args"]["correlation"]: e for e in evs
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
-    cpu = [e for e in evs if e.get("cat") == "user_annotation" and e["name"] == range_name]
-    gpu = [e for e in evs if e.get("cat") == "gpu_user_annotation" and e["name"] == range_name]
+    cpu = [e for e in evs if e.get("cat") == "user_annotation" and e["name"] in names]
+    gpu = [e for e in evs if e.get("cat") == "gpu_user_annotation" and e["name"] in names]
 
-    def inside(t0, t1, ranges, same=None):
-        return any(r["ts"] <= t0 and t1 <= r["ts"] + r["dur"]
-                   and (same is None or (r["pid"], r["tid"]) == same) for r in ranges)
-    n_in = 0
-    for k in kernels:
+    def holder(t0, t1, ranges, same=None):
+        return next((r["name"] for r in ranges if r["ts"] <= t0 and t1 <= r["ts"] + r["dur"]
+                     and (same is None or (r["pid"], r["tid"]) == same)), None)
+    out = []
+    for k in (e for e in evs if e.get("cat") == "kernel"):
         launch = launches.get(k.get("args", {}).get("correlation"))
-        if (launch is not None and inside(launch["ts"], launch["ts"] + launch.get("dur", 0), cpu,
-                                          (launch["pid"], launch["tid"]))) \
-                or inside(k["ts"], k["ts"] + k["dur"], gpu):
-            n_in += 1
-    return len(kernels), n_in
+        where = None if launch is None else holder(
+            launch["ts"], launch["ts"] + launch.get("dur", 0), cpu, (launch["pid"], launch["tid"]))
+        out.append((k["name"], float(k["dur"]),
+                    where or holder(k["ts"], k["ts"] + k["dur"], gpu)))
+    return out
+
+
+def k7_inside_ranges(doc: dict, range_name: str) -> tuple[int, int]:
+    """(K7 kernel events, how many of them lie inside a ``range_name`` range) in
+    a torch.profiler Chrome trace (``kernels_by_range``)."""
+    k7 = [where for name, _, where in kernels_by_range(doc, {range_name})
+          if "flash_decode" in name]
+    return len(k7), sum(where is not None for where in k7)
 
 
 def telemetry_phase(card, dev, serving, x) -> None:
@@ -1945,6 +2064,277 @@ def train_phase(card, dev) -> dict:
     return launches
 
 
+def zoo_phase(card, dev) -> dict:
+    """Phase 16: the MoE and M-RoPE decoders at their published widths, each cut
+    to ``ZOO_LAYERS`` layers, one model at a time. Returns each path's launches."""
+    import dataclasses
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs, kernels, pytree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import fz
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist import compressed_allreduce as car
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import moe, zoo
+    from repro_torch.serve import Engine, KVCompressionConfig, PoolConfig
+    from repro_torch.serve.kvpool import tracegen
+    from repro_torch.train import TrainConfig, Trainer
+
+    t_phase = time.time()
+    launches = {path: dict.fromkeys(kernels.WRAPPERS, 0)
+                for path in (*ZOO_SERVED, ZOO_VLM, "moe-train")}
+
+    def drive(path, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        for name, count in kernels.launch_counts().items():
+            launches[path][name] += count
+        return out
+
+    def plain(fn, what):
+        """A plain-route run: no kernel may launch."""
+        kernels.reset_launch_counts()
+        out = fn()
+        if any(kernels.launch_counts().values()):
+            raise AssertionError(f"the plain route of {what} launched {kernels.launch_counts()}")
+        return out
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else (
+            t.view(torch.int32) if t.dtype == torch.float32 else t)
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def build(arch):
+        full = configs.get(arch)
+        cfg = dataclasses.replace(full, n_layers=ZOO_LAYERS)
+        model = zoo.build(cfg)
+        t0 = time.time()
+        params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for t in pytree.leaves(params))
+        ffn = (f"{cfg.n_experts} experts top-{cfg.top_k}"
+               + (" + a shared expert" if cfg.shared_expert else "")
+               + f" of d_ff {cfg.d_ff}, capacity factor {cfg.capacity_factor}"
+               if cfg.n_experts else f"d_ff {cfg.d_ff}, M-RoPE sections {cfg.mrope_sections}")
+        say(16, f"{card} | {arch} at its published width (d_model {cfg.d_model}, "
+                f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads (G "
+                f"{cfg.n_heads // cfg.n_kv_heads}), head_dim {cfg.hd}, {ffn}, vocab "
+                f"{cfg.vocab}); cut: depth {full.n_layers} -> {cfg.n_layers} layers: "
+                f"{model.param_count():,} parameters ({model.active_param_count():,} active a "
+                f"token), {nbytes / 1e9:.2f} GB, random from torch.Generator seed 0 on the card "
+                f"in {time.time() - t0:.2f} s")
+        return cfg, model, params
+
+    # -- 16a, 16b: the MoE decoders through the paged pool, K7 and K4/K6 ------
+    trace_cfg = tracegen.TraceGenConfig(**SERVE_TRACE)
+    reqs = tracegen.generate(trace_cfg)
+    groups = {"K7 flash_decode": ("flash_decode",),
+              "K6 cold-page decode": ("decode_scan_rows", "bin_residuals", "scan_columns"),
+              "other GEMMs (projections, unembed)": (
+                  "gemm", "nvjet", "sm90", "cutlass", "xmma", "cublas", "Kernel2"),
+              "copies (page gather, stacking)": ("copy", "Copy", "cat", "Cat", "stack")}
+    for arch in ZOO_SERVED:
+        fresh()
+        t0 = time.time()
+        cfg, model, params = build(arch)
+        held = hold_served(16, card, dev, model, params, trace_cfg,
+                           lambda fn, arch=arch: drive(arch, fn), launches[arch])
+        pset = page_set(16, dev, model, params, reqs)
+        eng_k, pool, pages, lanes, tokens = (pset[k] for k in (
+            "eng_k", "pool", "pages", "lanes", "tokens"))
+
+        def step():
+            return eng_k.decode_step_paged(pool.gather_pages(lanes), tokens)
+
+        step_ms = cuda_ms(step, iters=10)
+        decode_ms = cuda_ms(lambda: eng_k.decode_step_paged(pages, tokens), iters=10)
+        # one profiled step: the MoE's router and its experts each in a named range
+        ranges = {"moe.route": moe.route, "moe.experts": moe.experts}
+
+        def ranged(name, fn):
+            def call(*a, **k):
+                with torch.profiler.record_function(name):
+                    return fn(*a, **k)
+            return call
+        step()
+        torch.cuda.synchronize()
+        for name, fn in ranges.items():
+            setattr(moe, name.split(".")[1], ranged(name, fn))
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            for name, fn in ranges.items():
+                setattr(moe, name.split(".")[1], fn)
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/step.json")
+            with open(f"{tmp}/step.json") as f:
+                kern = kernels_by_range(json.load(f), ranges)
+        split = dict.fromkeys(["expert einsums (moe.experts)", "router and dispatch (moe.route)",
+                               *groups, "other"], 0.0)
+        for name, us, where in kern:
+            key = ("expert einsums (moe.experts)" if where == "moe.experts" else
+                   "router and dispatch (moe.route)" if where == "moe.route" else
+                   next((g for g, keys in groups.items() if any(k in name for k in keys)),
+                        "other"))
+            split[key] += us
+        busy_ms = sum(split.values()) / 1e3
+        experts_floor = ZOO_LAYERS * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * 2 \
+            / HBM_BYTES_PER_S * 1e3
+        st = held["stats"]
+        say(16, f"{card} | {arch}: {held['n_tok'] / held['wall_k']:.1f} tokens/s over the trace "
+                f"({1e3 * held['wall_k'] / st.decode_steps:.1f} ms a decode step, prefills "
+                f"included); one step on the page set ({SERVE_LANES} lanes, lengths "
+                f"{pages['length'].tolist()}): gather + decode {step_ms:.3f} ms, decode alone "
+                f"{decode_ms:.3f} ms")
+        if busy_ms:
+            say(16, f"{card} | {arch} device time of one gather + decode step under "
+                    f"torch.profiler ({len(kern)} kernels): " + ", ".join(
+                        f"{name} {us / 1e3:.3f} ms ({100 * us / 1e3 / busy_ms:.1f}%)"
+                        for name, us in split.items())
+                    + f"; busy {busy_ms:.3f} ms of {wall_ms:.3f} ms, idle share "
+                      f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the experts read all "
+                      f"{cfg.n_experts} experts' weights of {ZOO_LAYERS} layers at capacity "
+                      f"{max(1, int(SERVE_LANES * cfg.top_k * cfg.capacity_factor / cfg.n_experts))}"
+                      f" a expert, {experts_floor:.3f} ms at the memory rate")
+        else:
+            say(16, "step split not measured (the profiler saw no device time)")
+        say(16, f"{card} | {arch}: peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+                f"GB; launches {launches[arch]}; {arch} done in {time.time() - t0:.1f} s")
+        del model, params, held, pset, eng_k, pool, pages, prof
+
+    # -- 16c: qwen2-vl through the whole cache, parked by K4 and resumed by K6 -
+    fresh()
+    t0 = time.time()
+    cfg, model, params = build(ZOO_VLM)
+    try:
+        Engine(model, params, pool=PoolConfig(**SERVE_POOL), device=dev).make_pool()
+    except NotImplementedError as e:
+        say(16, f"{ZOO_VLM}: make_pool refuses the paged pool, as the reference's: {e}")
+    else:
+        raise AssertionError(f"{ZOO_VLM}: make_pool built a paged pool for M-RoPE")
+    B, S, n_new = VLM_GENERATE
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32),
+             "positions": np.broadcast_to(np.arange(S, dtype=np.int32), (B, 3, S)).copy()}
+    runs = {}
+    for use_kernels in (True, False):
+        eng = Engine(model, params, device=dev, kv_compress=KVCompressionConfig(
+            enabled=True, eb=1e-4, use_kernels=use_kernels))
+        seen, park = [], eng.park
+
+        def rec_park(cache, park=park, seen=seen):
+            parked = park(cache)
+            seen.append((cache, parked))
+            return parked
+        eng.park = rec_park
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gen = lambda eng=eng: eng.generate(batch, n_new, park_between=True)   # noqa: E731
+        toks, cache = drive(ZOO_VLM, gen) if use_kernels else plain(gen, ZOO_VLM)
+        torch.cuda.synchronize()
+        runs[use_kernels] = (toks, cache, seen, time.perf_counter() - t, eng)
+    (toks_k, cache_k, seen_k, wall_k, eng_k), (toks_p, cache_p, seen_p, wall_p, _) = \
+        runs[True], runs[False]
+    if not (torch.equal(toks_k, toks_p) and all(same(cache_k[n], cache_p[n]) for n in cache_k)):
+        raise AssertionError(f"{ZOO_VLM}: the kernel route's tokens or cache differ from the "
+                             "plain route's")
+    plain_fz = KVCompressionConfig(enabled=True, eb=1e-4, use_kernels=False).fz_config()
+    worst, n_leaves = 0.0, 0
+    for (raw, pk), (_, pp) in zip(seen_k, seen_p):
+        for name, (codec, c, _, _) in pk.items():
+            if codec != "fz":
+                continue
+            cp = pp[name][1]
+            for f in c.FIELDS:
+                if not same(getattr(c, f), getattr(cp, f)):
+                    raise AssertionError(f"{ZOO_VLM}: parked {name} field {f} differs between "
+                                         "the kernel and the plain route")
+            x = raw[name].reshape(-1).float()
+            err = float((x - fz.decompress(c, plain_fz)).abs().max())
+            eb = float(c.eb_abs)
+            if not err <= eb * (1 + 2**-20) + float(x.abs().max()) * 2**-22:
+                raise AssertionError(f"{ZOO_VLM}: a parked {name} breaks the bound: {err} > {eb}")
+            worst, n_leaves = max(worst, err / eb), n_leaves + 1
+    if len(seen_k) != n_new - 1 or not n_leaves:
+        raise AssertionError(f"{ZOO_VLM}: {len(seen_k)} parks of {n_leaves} FZ leaves")
+    cache = cache_k
+    park_ms = cuda_ms(lambda: eng_k.resume(eng_k.park(cache)), iters=5)
+    say(16, f"{card} | {ZOO_VLM} Engine.generate(park_between=True), batch {B}, prompt {S}, "
+            f"{n_new} tokens, positions 0..{S - 1} on t/h/w: kernel route {wall_k:.2f} s "
+            f"({B * n_new / wall_k:.1f} tokens/s), plain route {wall_p:.2f} s; tokens, caches and "
+            f"all {n_leaves} parked containers bit for bit equal between the routes; worst "
+            f"max_err/eb {worst:.6f}; park + resume of the cache ({cache['k'].numel() * 2 / 1e6:.1f}"
+            f" MB a leaf) {park_ms:.3f} ms; peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {launches[ZOO_VLM]}; "
+            f"done in {time.time() - t0:.1f} s")
+    del model, params, runs, seen_k, seen_p, cache, cache_k, cache_p, eng_k
+
+    # -- 16d: two MoE training steps through the compressed reduce -------------
+    fresh()
+    t0 = time.time()
+    scfg = configs.get("dbrx-132b", smoke=True)
+    smodel = zoo.build(scfg)
+    shape = ShapeConfig(*ZOO_TRAIN_SHAPE)
+    gc_k = car.GradCompressionConfig(enabled=True)
+    n_fz = sum(1 for t in pytree.leaves(smodel.abstract_params())
+               if t.dtype.is_floating_point and t.numel() >= gc_k.min_leaf_size)
+    fresh_group = not dist.is_initialized()
+    mesh = lmesh.make_mesh((1, 1, 1), ("pod", "data", "model"), device=dev)
+    backend = dist.get_backend()
+    try:
+        p0 = smodel.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        out = {}
+        for use_kernels in (True, False):
+            t = Trainer(smodel, shape, mesh, TrainConfig(
+                grad_compress=dataclasses.replace(gc_k, use_kernels=use_kernels),
+                warmup_steps=1), stream=TokenStream(scfg.vocab, shape.seq_len,
+                                                   shape.global_batch, seed=0),
+                init_params=p0, device=dev)
+            fn = lambda t=t: t.run(ZOO_TRAIN_STEPS)    # noqa: E731
+            hist = drive("moe-train", fn) if use_kernels else plain(fn, "moe-train")
+            out[use_kernels] = (t.info["mode"], hist, t._state())
+    finally:
+        if fresh_group:
+            dist.destroy_process_group()
+    (mode, hist_k, state_k), (_, hist_p, state_p) = out[True], out[False]
+    la, lb = pytree.leaves_with_keys(state_k), pytree.leaves_with_keys(state_p)
+    if [k for k, _ in la] != [k for k, _ in lb] or not all(
+            same(a, b) for (_, a), (_, b) in zip(la, lb)):
+        raise AssertionError("dbrx training: the kernel route's state differs from the plain "
+                             "route's")
+    if [h["loss"] for h in hist_k] != [h["loss"] for h in hist_p] or not all(
+            np.isfinite(h["loss"]) for h in hist_k):
+        raise AssertionError(f"dbrx training losses: kernel {hist_k}, plain {hist_p}")
+    tl = launches["moe-train"]
+    if not tl["fused_compress"] == tl["fused_decompress"] == ZOO_TRAIN_STEPS * n_fz:
+        raise AssertionError(f"dbrx training launched {tl}, not K4 = K6 = steps x {n_fz} leaves")
+    say(16, f"{card} | {scfg.arch_id} training ({smodel.param_count():,} parameters, {shape}), "
+            f"{ZOO_TRAIN_STEPS} Trainer steps on make_mesh((1, 1, 1), ('pod', 'data', 'model')) "
+            f"({backend}, world size 1), mode {mode}, GradCompressionConfig(enabled=True): losses "
+            f"{[round(h['loss'], 6) for h in hist_k]}, the kernel route's params, optimizer "
+            f"and error state equal to the plain route's bit for bit; K4 = K6 = {n_fz} a step "
+            f"(leaves past min_leaf_size); done in {time.time() - t0:.1f} s")
+    fresh()
+    say(16, f"MoE and M-RoPE phase done in {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def tune_phase(card, dev, serving, x) -> None:
     """Phase 13: the resource table and its gates, the tuner on the card's
     points and its gates, and "auto" / the engine on the tuned cache (phase
@@ -2531,20 +2921,6 @@ def main() -> int:
         raise AssertionError("decompress_bytes did not launch fused_decompress")
 
     # -- 6. times at (100, 500, 500) ------------------------------------------
-    def cuda_ms(fn, iters=20, warmup=3):
-        """Time per call between CUDA events around back-to-back calls: the
-        larger of the device time and the host time of a call."""
-        for _ in range(warmup):
-            fn()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(iters):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / iters
-
     def device_ms(fn, iters=20, warmup=3):
         """Device time per call: the calls are queued behind a sleep kernel,
         so the card runs them back to back whatever the host's overhead.
@@ -2714,6 +3090,7 @@ def main() -> int:
     del serving, fields, flush
     wire = wire_phase(card, dev)
     train = train_phase(card, dev)
+    zoo_launches = zoo_phase(card, dev)
     pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
     for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10
         row["max_abs_err"] = max_err[row["name"]]
@@ -2726,6 +3103,9 @@ def main() -> int:
         row["wire_launches"] = sum(counts[row["name"]] for counts in wire.values())
         # every path of phase 15: the full-width steps and the smoke-size resume
         row["train_launches"] = sum(counts[row["name"]] for counts in train.values())
+        # phase 16's main paths: dbrx and llama4 served, qwen2-vl parked, dbrx trained
+        row["zoo_launches"] = {path: counts[row["name"]]
+                               for path, counts in zoo_launches.items()}
     say(10, f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -13,13 +13,15 @@ module enumerates the shapes the repo actually ships:
     each. The reference crosses them with its ``capacity_frac`` values; no
     launch of the port changes with the outlier capacity (its grids and
     shared bytes follow the shape alone), so the port does not.
-  * **flash-decode geometries**: the port's four dense configs
-    (``repro_torch.configs``: yi-6b, glm4-9b, internlm2-20b,
-    mistral-large-123b), full and smoke, at the contiguous ``KV_TILE`` and at
-    the page sizes 8, 16, 64 (``chip_smoke.py``'s serving pool) and 128, in
-    bf16 (the pool's type) and f32. The reference's other archs raise
-    ``NotImplementedError`` in ``configs.get`` until their families are
-    ported (ROADMAP, queue 1), so they are skipped here.
+  * **flash-decode geometries**: every config of the reference's registry
+    that the port serves (``repro_torch.configs``: the dense yi-6b, glm4-9b,
+    internlm2-20b and mistral-large-123b, the MoE dbrx-132b (G 6) and
+    llama4-scout-17b-a16e (G 5), and qwen2-vl-72b), full and smoke, at the
+    contiguous ``KV_TILE`` and at the page sizes 8, 16, 64 (``chip_smoke.py``'s
+    serving pool) and 128, in bf16 (the pool's type) and f32, as the
+    reference's ``_arch_points`` walks its registry. The recurrent and audio
+    archs raise ``NotImplementedError`` in ``configs.get`` until their
+    families are ported (ROADMAP, queue 1 item 5), so they are skipped here.
 
 ``build_specs()`` materializes the specs of every launch at every point from
 the builders :mod:`repro_torch.kernels` registers.
@@ -52,16 +54,19 @@ PAGE_SIZES = (8, 16, 64, 128)
 DECODE_BATCH = 8
 CONTIG_KV = 4096
 
-DENSE_ARCHS = ("yi-6b", "glm4-9b", "internlm2-20b", "mistral-large-123b")
-
-
 def _arch_points():
-    """(label, B, KVH, G, D) attention geometries of the port's dense configs."""
+    """(label, B, KVH, G, D) attention geometries of the configs the port serves,
+    in the registry's order."""
     from .. import configs
     pts = []
-    for arch_id in DENSE_ARCHS:
+    for arch_id in configs.ARCH_IDS:
         for smoke in (False, True):
-            cfg = configs.get(arch_id, smoke=smoke)
+            try:
+                cfg = configs.get(arch_id, smoke=smoke)
+            except NotImplementedError:
+                continue
+            if cfg.attention_free or cfg.n_kv_heads <= 0:
+                continue
             pts.append((cfg.arch_id, DECODE_BATCH, cfg.n_kv_heads,
                         max(1, cfg.n_heads // cfg.n_kv_heads), cfg.hd))
     return pts
@@ -85,7 +90,7 @@ def fz_specs(shape, dtype: str) -> list[KernelSpec]:
 
 
 def attention_specs() -> list[KernelSpec]:
-    """K7's launches at every dense geometry, contiguous and paged, bf16 and f32."""
+    """K7's launches at every served geometry, contiguous and paged, bf16 and f32."""
     fd = module("flash_decode")
     specs = []
     for label, b, kvh, g, d in _arch_points():

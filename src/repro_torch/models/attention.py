@@ -1,13 +1,13 @@
-"""Attention: RoPE, chunked flash attention, the prefix and decode paths.
+"""Attention: RoPE / M-RoPE, chunked flash attention, the prefix and decode paths.
 
-The port of ``repro/models/attention.py`` for the dense decoder. Everything is
+The port of ``repro/models/attention.py`` for the transformer family. Everything is
 plain PyTorch in float32, as the reference computes it outside any Pallas
 kernel: ``flash_attention`` is the chunked online softmax (q and kv chunks,
 causal masking with ``where``), ``attention_reference`` the naive oracle,
 ``prefix_attention`` the suffix prefill against a cached prefix, and
 ``decode_attention`` one token against a contiguous cache. The decode kernel
-(K7) sits behind ``serve/kvpool/attention.py``. M-RoPE waits for the VLM
-family.
+(K7) sits behind ``serve/kvpool/attention.py``. ``apply_mrope`` is Qwen2-VL's
+multimodal RoPE.
 """
 from __future__ import annotations
 
@@ -34,6 +34,23 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float = 1e4) -> torch.
     """x: (B, S, H, D), pos: (B, S) int."""
     d2 = x.shape[-1] // 2
     ang = pos[:, :, None].to(torch.float32) * rope_freqs(x.shape[-1], theta, x.device)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :d2].to(torch.float32), x[..., d2:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, sections: tuple[int, int, int],
+                theta: float = 1e4) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, D), pos3: (B, 3, S) (t/h/w position
+    ids); the D/2 frequency slots are split into ``sections`` (t, h, w), each slot
+    rotating by its section's position id."""
+    d2 = x.shape[-1] // 2
+    if sum(sections) != d2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to head_dim/2 = {d2}")
+    sec_of = torch.repeat_interleave(torch.arange(3, device=pos3.device),
+                                     torch.tensor(sections, device=pos3.device))  # (d2,)
+    pos = pos3[:, sec_of, :]                                   # (B, d2, S)
+    ang = pos.transpose(1, 2).to(torch.float32) * rope_freqs(x.shape[-1], theta, x.device)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :d2].to(torch.float32), x[..., d2:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

@@ -1,6 +1,10 @@
-"""The dense GQA decoder: the port of ``repro/models/transformer.py`` (dense family).
+"""The GQA decoder: the port of ``repro/models/transformer.py`` (dense, MoE and
+M-RoPE variants).
 
-Pre-RMSNorm, SwiGLU, full RoPE, grouped-query attention. Layer parameters are
+Pre-RMSNorm, SwiGLU, full RoPE, grouped-query attention; the MoE family (dbrx,
+llama4-scout) swaps the FFN for ``moe.moe_apply`` (plus a shared SwiGLU
+expert where the config has one), and the VLM backbone (qwen2-vl) rotates q
+and k by M-RoPE over ``batch["positions"]`` (B, 3, S). Layer parameters are
 stacked ``[L, ...]`` and every forward pass is a Python loop over the stack.
 ``forward_train`` gives the training loss; the serving entry points mirror the
 reference one for one:
@@ -8,11 +12,12 @@ reference one for one:
 * ``forward_prefill`` -- prompt -> last-position logits + the K/V cache
   (``batch["lengths"]`` marks true lengths of right-padded prompts);
 * ``forward_prefill_suffix`` -- a prompt suffix against a cached prefix;
-* ``forward_decode`` -- one token against a contiguous cache;
+* ``forward_decode`` -- one token against a contiguous cache (M-RoPE positions
+  default to the cache length on all three axes);
 * ``forward_decode_paged`` -- one token against the pool's page view, through
   ``serve/kvpool/attention.paged_decode_attention`` (K7 when ``use_kernels``).
-
-MoE and M-RoPE wait for their slices (ROADMAP).
+  It takes no positions: ``zoo.build`` offers it only where the reference does
+  (not for M-RoPE).
 """
 from __future__ import annotations
 
@@ -20,31 +25,41 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from . import moe as moe_mod
 from . import nn
-from .attention import apply_rope, decode_attention, flash_attention, prefix_attention
+from .attention import (apply_mrope, apply_rope, decode_attention, flash_attention,
+                        prefix_attention)
 
 CACHE_MARGIN = 128  # decode slots past the prefill length
 DP = "fsdp"
 TP = "tp"
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def layer_defs(cfg: ArchConfig) -> dict:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.family} layers are not ported yet "
-                                  "(ROADMAP, queue 1 item 14)")
+                                  "(ROADMAP, queue 1 item 5)")
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    return {
+    defs = {
         "attn_norm": nn.Param((L, d), (None, None), init="ones"),
         "wq": nn.Param((L, d, qd), (None, DP, TP)),
         "wk": nn.Param((L, d, kvd), (None, DP, TP)),
         "wv": nn.Param((L, d, kvd), (None, DP, TP)),
         "wo": nn.Param((L, qd, d), (None, TP, DP)),
         "mlp_norm": nn.Param((L, d), (None, None), init="ones"),
-        "w_gate": nn.Param((L, d, cfg.d_ff), (None, DP, TP)),
-        "w_up": nn.Param((L, d, cfg.d_ff), (None, DP, TP)),
-        "w_down": nn.Param((L, cfg.d_ff, d), (None, TP, DP)),
     }
+    if cfg.n_experts:
+        defs.update(moe_mod.moe_defs(cfg))
+    if not cfg.n_experts or cfg.shared_expert:
+        ffn = "ws" if cfg.n_experts else "w"        # the shared expert, or the dense FFN
+        defs.update({
+            f"{ffn}_gate": nn.Param((L, d, cfg.d_ff), (None, DP, TP)),
+            f"{ffn}_up": nn.Param((L, d, cfg.d_ff), (None, DP, TP)),
+            f"{ffn}_down": nn.Param((L, cfg.d_ff, d), (None, TP, DP)),
+        })
+    return defs
 
 
 def model_defs(cfg: ArchConfig) -> dict:
@@ -60,8 +75,15 @@ def _layer(params: dict, i: int) -> dict:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-def _ffn(lp: dict, h: torch.Tensor) -> torch.Tensor:
-    return nn.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig):
+    """Returns (out, aux_loss)."""
+    if cfg.n_experts:
+        out, aux = moe_mod.moe_apply(lp, h, cfg)
+        if cfg.shared_expert:
+            out = out + nn.swiglu(h, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+        return out, aux
+    return (nn.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _qkv(lp: dict, h: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor):
@@ -73,6 +95,9 @@ def _qkv(lp: dict, h: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor):
                      ("dp", None, "tp", None))
     v = nn.shard_act(nn.dense(h, lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd),
                      ("dp", None, "tp", None))
+    if cfg.mrope_sections is not None:
+        return (apply_mrope(q, pos, cfg.mrope_sections, cfg.rope_theta),
+                apply_mrope(k, pos, cfg.mrope_sections, cfg.rope_theta), v)
     return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
 
 
@@ -85,7 +110,7 @@ def _logits_at(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _block_train(lp: dict, x: torch.Tensor, cfg: ArchConfig,
-                 pos: torch.Tensor) -> torch.Tensor:
+                 pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
     x = nn.shard_act(x, ("dp", None, None))
     h = nn.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -93,11 +118,19 @@ def _block_train(lp: dict, x: torch.Tensor, cfg: ArchConfig,
     o = flash_attention(q, k, v, causal=True)
     x = x + nn.dense(o.reshape(B, S, -1), lp["wo"])
     h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(lp, h)
+    f, aux = _ffn(lp, h, cfg)
+    return x + f, aux
 
 
 def _positions(cfg: ArchConfig, batch: dict, S: int, B: int) -> torch.Tensor:
-    """Dense positions 0..S-1 for every row."""
+    """M-RoPE: ``batch["positions"]`` (B, 3, S), which the caller supplies (the
+    reference's ``input_specs`` rule: the vision frontend is stubbed). Else
+    positions 0..S-1 for every row."""
+    if cfg.mrope_sections is not None:
+        if batch.get("positions") is None:
+            raise ValueError(f"{cfg.arch_id} takes M-RoPE position ids: "
+                             "batch['positions'] of shape (B, 3, S)")
+        return batch["positions"]
     return torch.arange(S, dtype=torch.int32, device=batch["tokens"].device).expand(B, S)
 
 
@@ -110,9 +143,10 @@ def forward_train(params: dict, cfg: ArchConfig, batch: dict):
     leaf, whose backward stacks the layers' gradients once. With
     ``cfg.remat`` each layer is recomputed in the backward pass
     (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` over
-    the reference's scan body). The reference adds ``0.01`` times the
-    layers' auxiliary losses, which are 0 in the dense family: the loss is
-    the cross entropy.
+    the reference's scan body). The loss adds ``0.01`` times the sum of the
+    layers' auxiliary losses (MoE load balance; 0 in the dense family) to
+    the cross entropy; ``aux["xent"]`` is the cross entropy alone. M-RoPE
+    configs read ``batch["positions"]``.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -121,18 +155,20 @@ def forward_train(params: dict, cfg: ArchConfig, batch: dict):
     pos = _positions(cfg, batch, S, B)
     stack = nn.grad_tap(params["layers"], "layers")
     names = sorted(stack)
+    auxs = []
     for slices in zip(*(torch.unbind(stack[n], 0) for n in names)):
         lp = dict(zip(names, slices))
         if cfg.remat:
-            x = checkpoint(_block_train, lp, x, cfg, pos, use_reentrant=False)
+            x, aux = checkpoint(_block_train, lp, x, cfg, pos, use_reentrant=False)
         else:
-            x = _block_train(lp, x, cfg, pos)
+            x, aux = _block_train(lp, x, cfg, pos)
         x = nn.shard_act(x, ("dp", None, None))
+        auxs.append(aux)
     x = nn.rms_norm(x, nn.grad_tap(params["final_norm"], "final_norm"), cfg.norm_eps)
     logits = nn.shard_act(nn.dense(x, nn.grad_tap(params["unembed"], "unembed")),
                           ("dp", None, "tp"))
     loss = nn.sharded_xent(logits, batch["labels"])
-    return loss, {"xent": loss}
+    return loss + 0.01 * torch.sum(torch.stack(auxs)), {"xent": loss}
 
 
 def cache_len(S: int) -> int:
@@ -159,7 +195,7 @@ def forward_prefill(params: dict, cfg: ArchConfig, batch: dict):
     B, S = tokens.shape
     dev = tokens.device
     x = nn.embed_lookup(tokens, params["embed"])
-    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    pos = _positions(cfg, batch, S, B)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
@@ -168,7 +204,7 @@ def forward_prefill(params: dict, cfg: ArchConfig, batch: dict):
         o = flash_attention(q, k, v, causal=True)
         x = x + nn.dense(o.reshape(B, S, -1), lp["wo"])
         h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lp, h)
+        x = x + _ffn(lp, h, cfg)[0]
         pad = (0, 0, 0, 0, 0, CACHE_MARGIN)
         ks.append(torch.nn.functional.pad(k, pad).to(torch.bfloat16))
         vs.append(torch.nn.functional.pad(v, pad).to(torch.bfloat16))
@@ -203,7 +239,7 @@ def forward_prefill_suffix(params: dict, cfg: ArchConfig, prefix: dict, batch: d
         o = prefix_attention(q, prefix["k"][i], prefix["v"][i], prefix_len, k, v)
         x = x + nn.dense(o.reshape(B, S, -1), lp["wo"])
         h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lp, h)
+        x = x + _ffn(lp, h, cfg)[0]
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
     lengths = batch["lengths"].to(torch.int32)
@@ -212,16 +248,23 @@ def forward_prefill_suffix(params: dict, cfg: ArchConfig, prefix: dict, batch: d
                     "length": prefix_len + lengths}
 
 
-def forward_decode(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor):
+def forward_decode(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
+                   positions: torch.Tensor | None = None):
     """One decode step. token: (B,) int. Returns (logits, new cache).
 
     Writes this step's K/V at index ``length`` of a copy of the cache, then
-    attends over the valid prefix; the input cache is left as it was.
+    attends over the valid prefix; the input cache is left as it was. M-RoPE
+    configs rotate by ``positions`` (B, 3, 1), by default the cache length on
+    all three axes.
     """
     B = token.shape[0]
     x = nn.embed_lookup(token, params["embed"])          # (B, d)
     length = cache["length"]
-    pos = length[:, None]
+    if cfg.mrope_sections is not None:
+        pos = positions if positions is not None else \
+            length[:, None, None].expand(B, 3, 1)
+    else:
+        pos = length[:, None]
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
@@ -235,7 +278,7 @@ def forward_decode(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tens
         o = decode_attention(q[:, 0], kc, vc, length + 1)
         x = x + nn.dense(o.reshape(B, -1), lp["wo"])
         h = nn.rms_norm(x[:, None], lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lp, h)[:, 0]
+        x = x + _ffn(lp, h, cfg)[0][:, 0]
         ks.append(kc)
         vs.append(vc)
     x = nn.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -259,7 +302,7 @@ def forward_decode_paged(params: dict, cfg: ArchConfig, pages: dict, token: torc
     B = token.shape[0]
     x = nn.embed_lookup(token, params["embed"])
     length = pages["length"]
-    pos = length[:, None]
+    pos = length[:, None]            # M-RoPE configs have no paged decode (zoo.build)
     k_new, v_new = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
@@ -270,7 +313,7 @@ def forward_decode_paged(params: dict, cfg: ArchConfig, pages: dict, token: torc
             use_kernels=use_kernels)
         x = x + nn.dense(o.reshape(B, -1), lp["wo"])
         h = nn.rms_norm(x[:, None], lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lp, h)[:, 0]
+        x = x + _ffn(lp, h, cfg)[0][:, 0]
         k_new.append(k[:, 0])
         v_new.append(v[:, 0])
     x = nn.rms_norm(x, params["final_norm"], cfg.norm_eps)

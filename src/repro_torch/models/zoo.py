@@ -4,13 +4,18 @@
     params = model.init(generator, device="cuda")
     loss, aux = model.train_loss(params, batch)
     logits, cache = model.prefill(params, batch)
-    logits, cache = model.decode(params, cache, token)
+    logits, cache = model.decode(params, cache, token, positions=None)
     logits, (k_new, v_new) = model.decode_paged(params, pages, token, use_kernels=True)
     logits, cache = model.prefill_suffix(params, prefix, batch)
     specs = model.input_specs(shape)       # meta tensors + logical shardings
 
-Only the dense family is ported; ``build`` raises ``NotImplementedError`` for
-the others (ROADMAP, queue 1 item 14).
+``build`` takes the reference's ``transformer`` families: dense, moe and vlm.
+The page-native paths (``decode_paged``, ``prefill_suffix``) exist where the
+reference's gate allows them: dense and moe, and vlm without M-RoPE. An M-RoPE
+model's are ``None``: the pool's paged decode rotates by the 1-D cache length,
+where M-RoPE takes (B, 3, S) position ids. ``build`` raises
+``NotImplementedError`` for the recurrent and audio families (ROADMAP, queue 1
+item 5).
 """
 from __future__ import annotations
 
@@ -48,6 +53,17 @@ class Model:
     def param_count(self) -> int:
         return nn.param_count(self.defs())
 
+    def active_param_count(self) -> int:
+        """MoE: parameters touched per token (for MODEL_FLOPS = 6 N_active D)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.n_experts:
+            return total
+        layers = self.defs()["layers"]
+        expert = nn.param_count({name: layers[name]
+                                 for name in ("we_gate", "we_up", "we_down")})
+        return total - expert + expert * cfg.top_k // cfg.n_experts
+
     def train_loss(self, params, batch):
         return transformer.forward_train(params, self.cfg, batch)
 
@@ -55,6 +71,7 @@ class Model:
         """(structs, logical shardings) of the step's inputs: ``meta`` int32
         tensors of the shape's sizes, and each input's logical axes."""
         B, S = shape.global_batch, shape.seq_len
+        mrope = self.cfg.mrope_sections is not None
 
         def struct(*dims):
             return torch.empty(dims, dtype=torch.int32, device="meta")
@@ -62,14 +79,19 @@ class Model:
             specs, shards = {"tokens": struct(B, S)}, {"tokens": (DP, None)}
             if shape.kind == "train":
                 specs["labels"], shards["labels"] = struct(B, S), (DP, None)
+            if mrope:
+                specs["positions"], shards["positions"] = struct(B, 3, S), (DP, None, None)
             return specs, shards
-        return {"token": struct(B)}, {"token": (DP,)}
+        specs, shards = {"token": struct(B)}, {"token": (DP,)}
+        if mrope:
+            specs["positions"], shards["positions"] = struct(B, 3, 1), (DP, None, None)
+        return specs, shards
 
     def prefill(self, params, batch):
         return transformer.forward_prefill(params, self.cfg, batch)
 
-    def decode(self, params, cache, token):
-        return transformer.forward_decode(params, self.cfg, cache, token)
+    def decode(self, params, cache, token, positions=None):
+        return transformer.forward_decode(params, self.cfg, cache, token, positions)
 
     def decode_paged(self, params, pages, token, use_kernels: bool = True):
         return transformer.forward_decode_paged(params, self.cfg, pages, token,
@@ -82,8 +104,18 @@ class Model:
         return transformer.init_cache(self.cfg, B, S, device=device)
 
 
+@dataclasses.dataclass(frozen=True)
+class WholeCacheModel(Model):
+    """A model without the page-native paths (M-RoPE): it serves through the
+    whole cache only."""
+    decode_paged = None
+    prefill_suffix = None
+
+
 def build(cfg: ArchConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in transformer.FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.arch_id}) is not ported "
-                                  "yet (ROADMAP, queue 1 item 14)")
-    return Model(cfg)
+                                  "yet (ROADMAP, queue 1 item 5)")
+    if cfg.family in ("dense", "moe") or cfg.mrope_sections is None:
+        return Model(cfg)
+    return WholeCacheModel(cfg)

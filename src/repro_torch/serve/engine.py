@@ -24,6 +24,11 @@ route; on the card the tuner never picks the plain route).
 ``Engine.attention_workload`` is the tuning point of that choice with the
 engine's own geometry, so a pre-tune measures the paged route it serves.
 
+A model without page-native paths (M-RoPE: ``model.decode_paged is None``)
+serves through the whole cache only: ``make_pool`` raises
+``NotImplementedError`` for it, as the reference's does, and the engine's
+``prefill_suffix`` is ``None``.
+
 Telemetry, as the reference's: ``engine.prefill``, ``engine.decode_step``,
 ``engine.decode_step_paged``, ``engine.park``, ``engine.resume`` and
 ``engine.serve`` spans, and the ``engine_serve_tokens`` /
@@ -113,6 +118,10 @@ class Engine:
         self.device = resolve_device(device)
         self.kcfg = kv_compress or KVCompressionConfig()
         self.pool_cfg = pool
+        if model.prefill_suffix is None:
+            # the scheduler probes callable(engine.prefill_suffix); without it,
+            # prefix sharing degrades to full prefill
+            self.prefill_suffix = None
         # paged decode attention, resolved once: the tuned winner, else K7
         self.decode_attention = None
         if pool is not None and pool.use_kernels:
@@ -133,7 +142,8 @@ class Engine:
     def paged_decode_enabled(self) -> bool:
         """True when ``serve`` decodes page-natively through K7
         (``PoolConfig.use_kernels`` routes both FZ and decode attention)."""
-        return self.pool_cfg is not None and self.pool_cfg.use_kernels
+        return (self.pool_cfg is not None and self.pool_cfg.use_kernels
+                and self.model.decode_paged is not None)
 
     def prefill(self, batch: dict):
         with obs.span("engine.prefill"):
@@ -152,6 +162,8 @@ class Engine:
         """One decode step on the page view (``PagePool.gather_pages``); returns
         ``(logits, (k_new, v_new))`` with the step's K/V (L, B, KVH, hd) for the
         pool append."""
+        if self.model.decode_paged is None:
+            raise ValueError("model/pool combination has no paged decode")
         use_kernels = self.pool_cfg is None or self.decode_attention == "kernel"
         with obs.span("engine.decode_step_paged"):
             return self.model.decode_paged(self.params, pages, tokens,
@@ -190,6 +202,10 @@ class Engine:
         if self.pool_cfg is None:
             raise ValueError("Engine was built without a PoolConfig")
         cfg = self.model.cfg
+        if cfg.mrope_sections is not None:
+            raise NotImplementedError(
+                f"paged KV pool supports plain k/v/length caches with 1-D positions; "
+                f"{cfg.arch_id} rotates by M-RoPE position ids")
         return kvpool.PagePool(self.pool_cfg, n_layers=cfg.n_layers,
                                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
                                device=self.device)

@@ -16,6 +16,10 @@ the plain route, the CPU route and the bucketed form over three steps;
 plain attention; a ``codec="fz"`` checkpoint saved on the card (K5) equal to
 the CPU port's files, restored (K6) within the bound.
 
+The MoE router on the card: ``moe.moe_apply`` on exactly representable
+inputs (ties included) routes as on the CPU, index for index and slot for
+slot.
+
 Training on the card: two compressed steps at the smoke config, the kernel
 route equal to the plain route and to itself, bit for bit; the overlap form
 equal to the barrier form; the train launcher saving with K5 and resuming
@@ -395,6 +399,10 @@ K7_CASES = [
     # rows of 24 bytes, not a multiple of 16: copied by plain loads, not cp.async
     (2, 8, 2, 12, 5, 7, torch.bfloat16, [0, 30], None, 0),
     (3, 4, 4, 6, 50, 0, torch.float32, [50, 13, 0], 16, 0),
+    # group sizes that do not divide K7's 32 lane groups: dbrx-132b (48 heads
+    # over 8, G 6) and llama4-scout-17b-a16e (40 over 8, G 5), pages of 64
+    (4, 48, 8, 128, 13, 64, torch.bfloat16, [0, 100, 128, 832], None, 0),
+    (4, 40, 8, 128, 13, 64, torch.bfloat16, [64, 5, 500, 900], None, 0),
 ]
 
 
@@ -732,3 +740,37 @@ def test_train_launcher_on_the_card_saves_and_resumes_with_the_fz_codec(cuda, tm
     assert [m["step"] for m in hist] == [2] and np.isfinite(hist[0]["loss"])
     assert saved["fused_shuffle_encode"] > 0 and resumed["fused_decompress"] > 0
     assert saved["fused_compress"] == resumed["fused_compress"] == 0     # no pod axis
+
+
+def test_moe_routes_on_the_card_as_on_the_cpu(cuda):
+    """Exactly representable router and input (small integers times powers of
+    two), experts 1 and 3 tied on every token and one all-zero token: the top-k
+    indices, slots, drops and dispatch mask on the card equal the CPU's, and
+    the outputs agree within 0.0625 (bfloat16 sums in another order)."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import moe
+    cfg = ArchConfig(arch_id="t", family="moe", n_layers=1, d_model=32, n_heads=2,
+                     n_kv_heads=2, d_ff=64, vocab=128, n_experts=4, top_k=2,
+                     capacity_factor=0.5)
+    rng = np.random.default_rng(1)
+    router = rng.integers(-2, 3, (32, 4)).astype(np.float32) * 0.25
+    router[:, 3] = router[:, 1]
+    h = rng.integers(-3, 4, (2, 16, 32)).astype(np.float32) * 0.5
+    h[0, 5] = 0.0
+    lp = {"router": torch.from_numpy(router)}
+    for name, shape in (("we_gate", (4, 32, 64)), ("we_up", (4, 32, 64)),
+                        ("we_down", (4, 64, 32))):
+        lp[name] = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.2) \
+            .to(torch.bfloat16)
+    x = torch.from_numpy(h).to(torch.bfloat16)
+    C = max(1, int(32 * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+    want = moe.route(lp, x.reshape(1, 32, 32), cfg, C)
+    got = moe.route({k: v.to(cuda) for k, v in lp.items()}, x.to(cuda).reshape(1, 32, 32),
+                    cfg, C)
+    for key in ("idx", "pos", "keep", "oh_pos", "dispatch"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert int((1 - want["keep"]).sum()) > 0 and want["idx"][0, 5].tolist() == [0, 1]
+    y, aux = moe.moe_apply({k: v.to(cuda) for k, v in lp.items()}, x.to(cuda), cfg)
+    y0, aux0 = moe.moe_apply(lp, x, cfg)
+    torch.testing.assert_close(y.float().cpu(), y0.float(), atol=0.0625, rtol=0)
+    torch.testing.assert_close(aux.cpu(), aux0, rtol=1e-6, atol=0)

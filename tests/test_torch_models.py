@@ -86,11 +86,11 @@ def test_dense_configs_match_reference(arch, smoke):
 
 def test_other_families_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("dbrx-132b")
+        configs.get("rwkv6-3b")
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.build(configs.get("yi-6b").reduced(family="moe"))
+        zoo.build(configs.get("yi-6b").reduced(family="ssm"))
 
 
 def test_params_carry_over_bit_for_bit(models):
