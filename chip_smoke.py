@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port end to end on one CUDA card: the FZ compressor, the
 serving path (Yi-6B over the paged FZ KV pool with K7 flash-decode), the
 gradient wire and checkpoints, training (Yi-6B's width, K4/K6 in the
-compressed gradient mean of every step), and the MoE and M-RoPE decoders
-(dbrx-132b, llama4-scout-17b-a16e, qwen2-vl-72b at their published widths).
+compressed gradient mean of every step), the MoE and M-RoPE decoders
+(dbrx-132b, llama4-scout-17b-a16e, qwen2-vl-72b at their published widths),
+and the recurrent and audio families (rwkv6-3b, zamba2-2.7b, whisper-tiny at
+their published sizes, their whole caches parked through K4/K6).
 
     python3 chip_smoke.py          # from the root of the repository, on a card
 
@@ -58,8 +60,10 @@ Phases (each prints its own lines):
      lengths 0 / mid-page / page-aligned / on a split border / full / past
      the slice; one page a split), 1, 2 and 13 splits, small odd shapes (page
      7, D 64, G 1 and 4, float32 and bfloat16, shard_offset > 0, length past
-     the slice) and the contiguous entry; fully masked rows exactly (m, num,
-     den) = (-1e30, 0, 0);
+     the slice), the contiguous entry, phase 16's G 6 and G 5, and the
+     geometries of phase 17's attention (zamba2-2.7b: KVH 32, G 1, D 80;
+     whisper-tiny: KVH 6, G 1, D 64); fully masked rows exactly (m, num, den)
+     = (-1e30, 0, 0);
   8. the serving path at Yi-6B's full config (32 layers, d_model 4096,
      random bfloat16 weights from a torch.Generator seeded 0 on the card): an
      8-request tracegen trace through ``Engine.serve`` with the paged FZ KV
@@ -239,6 +243,33 @@ Phases (each prints its own lines):
      route's bit for bit. The ``kernels`` JSON gives each kernel's launches on
      each of these paths as ``zoo_launches``.
 
+  17. the recurrent and audio families (``models/rwkv6.py``, ``mamba2.py``,
+     ``zamba2.py``, ``whisper.py``), after phase 16, one model at a time, each
+     at its published width and depth (nothing cut), random bfloat16 weights
+     from a ``torch.Generator`` seeded 0 on the card: (a) rwkv6-3b, (b)
+     zamba2-2.7b and (c) whisper-tiny (its audio embeddings zeros, as the
+     launcher feeds them). ``make_pool`` refuses each (not a plain k/v/length
+     cache), and ``Engine.generate(park_between=True)``, batch 2, prompt 512,
+     16 tokens, rel eb 1e-4, parks the whole cache through K4 and resumes it
+     through K6 each step: the float32 recurrent states (``wkv``, ``sh_a``,
+     ``sh_f``, ``ssm``) and the bfloat16 ``conv``, K/V and cross K/V. Gates:
+     the kernel route's tokens, final cache and every parked container equal
+     the plain route's bit for bit; every parked leaf holds the reference's
+     bound; K4 and K6 launch parks x parked leaves times each, the plain route
+     nothing. Printed: tokens/s, ms a prefill and a decode step, park and
+     resume ms, each parked leaf's compression ratio, the device split of a
+     prefill and of a parked decode step under torch.profiler (the scans
+     ``rwkv6._wkv_chunked``, ``mamba2._ssd_chunked`` and ``mamba2._conv`` by
+     their ranges; K4, K6, GEMMs, the rest by kind), peak memory, and the
+     largest logit difference of prefill 513 against prefill 512 plus one
+     decode step. (d) rwkv6-3b cut to 2 layers and zamba2-2.7b to 6 (one
+     superblock), each at its published width, train_4k's sequence length and
+     a global batch of 2, two ``Trainer`` steps on the one-rank NCCL pod mesh
+     through the compressed reduce: params, optimizer and error state of the
+     kernel route equal the plain route's bit for bit, K4 = K6 = steps x
+     leaves past ``min_leaf_size``. The ``kernels`` JSON gives each kernel's
+     launches on each of these paths as ``recurrent_launches``.
+
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
 ``dense`` accumulates; the port's modules change no global state.
@@ -297,6 +328,14 @@ K7_CASES = [
     # (48 heads over 8 KV heads, G 6) and llama4-scout-17b-a16e (40 over 8, G 5)
     (4, 48, 8, 128, 13, 64, "bfloat16", [0, 100, 128, 832], None, 0),
     (4, 40, 8, 128, 13, 64, "bfloat16", [64, 5, 500, 900], None, 0),
+    # the geometries the resource pass takes from zamba2-2.7b (32 heads of 80
+    # over 32 KV heads: G 1, a head size the 128-wide template pads) and
+    # whisper-tiny (6 heads of 64 over 6: G 1), paged and contiguous
+    (4, 32, 32, 80, 13, 64, "bfloat16", [0, 100, 128, 832], None, 0),
+    (4, 32, 32, 80, 13, 64, "float32", [64, 5, 500, 900], None, 0),
+    (2, 32, 32, 80, 300, 0, "bfloat16", [300, 17], None, 0),
+    (4, 6, 6, 64, 13, 64, "bfloat16", [64, 5, 500, 900], None, 0),
+    (3, 6, 6, 64, 300, 0, "float32", [0, 299, 128], 128, 0),
 ]
 # K6 at its edge shapes: rows longer than a tile, rows of one element, the
 # serving page (a flattened bfloat16 page of 2 x 32 layers x 64 x 4 x 128)
@@ -383,6 +422,16 @@ ZOO_LAYERS = 2
 VLM_GENERATE = (2, 512, 16)                       # batch, prompt, tokens (phase 9's)
 ZOO_TRAIN_SHAPE = ("local", 128, 4, "train")      # dbrx SMOKE: 512 tokens a step
 ZOO_TRAIN_STEPS = 2
+# phase 17: the recurrent and audio families at their published width and depth
+RECURRENT_SERVED = ("rwkv6-3b", "zamba2-2.7b", "whisper-tiny")
+RECURRENT_GENERATE = (2, 512, 16)                 # batch, prompt, tokens (phase 9's)
+RECURRENT_EB = 1e-4                               # rel eb of every parked leaf
+# training cuts in depth only: rwkv6-3b to 2 layers, zamba2-2.7b to 6 (one superblock)
+RECURRENT_TRAIN = (("rwkv6-3b", 2), ("zamba2-2.7b", 6))
+RECURRENT_TRAIN_SHAPE = ("local", 4096, 2, "train")   # train_4k's sequence, global batch 2
+RECURRENT_TRAIN_STEPS = 2
+# the recurrences' own ops, each in a named range for the profiler's split
+RECURRENT_RANGES = (("rwkv6", "_wkv_chunked"), ("mamba2", "_ssd_chunked"), ("mamba2", "_conv"))
 
 
 def say(phase, msg):
@@ -2064,11 +2113,51 @@ def train_phase(card, dev) -> dict:
     return launches
 
 
+def launch_recorder(launches: dict):
+    """(drive, plain): ``drive(path, fn)`` runs ``fn`` with the launch counts set
+    to 0 just before and adds them to ``launches[path]`` just after;
+    ``plain(fn, what)`` runs a plain-route ``fn``, in which no kernel may launch."""
+    from repro_torch import kernels
+
+    def drive(path, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        for name, count in kernels.launch_counts().items():
+            launches[path][name] += count
+        return out
+
+    def plain(fn, what):
+        kernels.reset_launch_counts()
+        out = fn()
+        if any(kernels.launch_counts().values()):
+            raise AssertionError(f"the plain route of {what} launched {kernels.launch_counts()}")
+        return out
+    return drive, plain
+
+
+def same(a, b) -> bool:
+    """Equal shape, type and bits (NaN included)."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else (
+            t.view(torch.int32) if t.dtype == torch.float32 else t)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
+
+def fresh():
+    """Free what the last model left and restart the peak-memory count."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def zoo_phase(card, dev) -> dict:
     """Phase 16: the MoE and M-RoPE decoders at their published widths, each cut
     to ``ZOO_LAYERS`` layers, one model at a time. Returns each path's launches."""
     import dataclasses
-    import gc
     import tempfile
     import numpy as np
     import torch
@@ -2088,33 +2177,7 @@ def zoo_phase(card, dev) -> dict:
     t_phase = time.time()
     launches = {path: dict.fromkeys(kernels.WRAPPERS, 0)
                 for path in (*ZOO_SERVED, ZOO_VLM, "moe-train")}
-
-    def drive(path, fn):
-        kernels.reset_launch_counts()
-        out = fn()
-        for name, count in kernels.launch_counts().items():
-            launches[path][name] += count
-        return out
-
-    def plain(fn, what):
-        """A plain-route run: no kernel may launch."""
-        kernels.reset_launch_counts()
-        out = fn()
-        if any(kernels.launch_counts().values()):
-            raise AssertionError(f"the plain route of {what} launched {kernels.launch_counts()}")
-        return out
-
-    def bits(t):
-        return t.view(torch.int16) if t.dtype == torch.bfloat16 else (
-            t.view(torch.int32) if t.dtype == torch.float32 else t)
-
-    def same(a, b):
-        return a.shape == b.shape and torch.equal(bits(a), bits(b))
-
-    def fresh():
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    drive, plain = launch_recorder(launches)
 
     def build(arch):
         full = configs.get(arch)
@@ -2332,6 +2395,266 @@ def zoo_phase(card, dev) -> dict:
             f"(leaves past min_leaf_size); done in {time.time() - t0:.1f} s")
     fresh()
     say(16, f"MoE and M-RoPE phase done in {time.time() - t_phase:.1f} s")
+    return launches
+
+
+def profile_split(fn, ranges: dict) -> tuple[dict, float, float, int]:
+    """One call of ``fn`` under torch.profiler, with each function of ``ranges``
+    (range name -> (module, attribute)) wrapped in a named range. Returns the
+    device time (us) by group (``RECURRENT_RANGES``' ranges, then
+    ``KERNEL_KINDS``), the busy and wall ms and the kernel count."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def ranged(name, f):
+        def call(*a, **k):
+            with torch.profiler.record_function(name):
+                return f(*a, **k)
+        return call
+    fn()
+    torch.cuda.synchronize()
+    originals = {name: getattr(mod, attr) for name, (mod, attr) in ranges.items()}
+    for name, (mod, attr) in ranges.items():
+        setattr(mod, attr, ranged(name, originals[name]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for name, (mod, attr) in ranges.items():
+            setattr(mod, attr, originals[name])
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            kern = kernels_by_range(json.load(f), ranges)
+    split = dict.fromkeys([*ranges, *(kind for kind, _ in KERNEL_KINDS), "other"], 0.0)
+    for name, us, where in kern:
+        split[where or kernel_kind(name)] += us
+    return split, sum(split.values()) / 1e3, wall_ms, len(kern)
+
+
+def recurrent_phase(card, dev) -> dict:
+    """Phase 17: rwkv6-3b, zamba2-2.7b and whisper-tiny served whole at their
+    published width and depth, each cache parked through K4 and resumed through
+    K6 every step; rwkv6 and zamba2 trained, cut in depth, through the
+    compressed reduce. Returns each path's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, kernels, pytree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import fz
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.dist import compressed_allreduce as car
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import mamba2, rwkv6, zoo
+    from repro_torch.serve import Engine, KVCompressionConfig, PoolConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    t_phase = time.time()
+    train_paths = [f"{arch}-train" for arch, _ in RECURRENT_TRAIN]
+    launches = {path: dict.fromkeys(kernels.WRAPPERS, 0)
+                for path in (*RECURRENT_SERVED, *train_paths)}
+    drive, plain = launch_recorder(launches)
+    mods = {"rwkv6": rwkv6, "mamba2": mamba2}
+    ranges = {f"{m}.{attr}": (mods[m], attr) for m, attr in RECURRENT_RANGES}
+
+    def kcfg(use_kernels):
+        return KVCompressionConfig(enabled=True, eb=RECURRENT_EB, use_kernels=use_kernels,
+                                   kernel_mode="fused")
+
+    def split_line(what, split, busy_ms, wall_ms, n):
+        if not busy_ms:
+            return f"{what}: device split not measured (the profiler saw no device time)"
+        return (f"{what} under torch.profiler ({n} kernels): " + ", ".join(
+            f"{name} {us / 1e3:.3f} ms ({100 * us / 1e3 / busy_ms:.1f}%)"
+            for name, us in split.items() if us) + f"; busy {busy_ms:.3f} ms of {wall_ms:.3f} "
+            f"ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+
+    # -- 17a-c: served whole at published size, parked by K4, resumed by K6 -------
+    B, S, n_new = RECURRENT_GENERATE
+    for arch in RECURRENT_SERVED:
+        fresh()
+        t0 = time.time()
+        cfg = configs.get(arch)
+        model = zoo.build(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for t in pytree.leaves(params))
+        say(17, f"{card} | {arch} at its published width and depth ({cfg.n_layers} layers, "
+                f"d_model {cfg.d_model}, family {cfg.family}): {model.param_count():,} "
+                f"parameters, {nbytes / 1e9:.2f} GB, random from torch.Generator seed 0 on "
+                f"the card in {time.time() - t0:.2f} s; nothing cut")
+        try:
+            Engine(model, params, pool=PoolConfig(**SERVE_POOL), device=dev).make_pool()
+        except NotImplementedError as e:
+            say(17, f"{arch}: make_pool refuses the paged pool, as the reference's: {e}")
+        else:
+            raise AssertionError(f"{arch}: make_pool built a paged pool")
+        rng = np.random.default_rng(1)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S), dtype=np.int32))
+                 .to(dev)}
+        if cfg.family == "audio":           # the stubbed frontend, as the launcher feeds it
+            batch["audio_embeds"] = torch.zeros((B, cfg.n_audio_ctx, cfg.d_model),
+                                                dtype=torch.bfloat16, device=dev)
+        runs = {}
+        for use_kernels in (True, False):
+            eng = Engine(model, params, device=dev, kv_compress=kcfg(use_kernels))
+            seen, park = [], eng.park
+
+            def rec_park(cache, park=park, seen=seen):
+                parked = park(cache)
+                seen.append((cache, parked))
+                return parked
+            eng.park = rec_park
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gen = lambda eng=eng: eng.generate(batch, n_new, park_between=True)   # noqa: E731
+            toks, cache = drive(arch, gen) if use_kernels else plain(gen, arch)
+            torch.cuda.synchronize()
+            runs[use_kernels] = (toks, cache, seen, time.perf_counter() - t, eng)
+        (toks_k, cache_k, seen_k, wall_k, eng_k), (toks_p, cache_p, seen_p, wall_p, _) = \
+            runs[True], runs[False]
+        if not (torch.equal(toks_k, toks_p) and sorted(cache_k) == sorted(cache_p)
+                and all(same(cache_k[n], cache_p[n]) for n in cache_k)):
+            raise AssertionError(f"{arch}: the kernel route's tokens or cache differ from the "
+                                 "plain route's")
+        plain_fz = kcfg(False).fz_config()
+        worst, fz_names = 0.0, None
+        for (raw, pk), (_, pp) in zip(seen_k, seen_p):
+            names = [name for name, (codec, *_) in pk.items() if codec == "fz"]
+            if fz_names not in (None, names):
+                raise AssertionError(f"{arch}: parked leaves {names} after {fz_names}")
+            fz_names = names
+            for name in names:
+                c, cp = pk[name][1], pp[name][1]
+                for f in c.FIELDS:
+                    if not same(getattr(c, f), getattr(cp, f)):
+                        raise AssertionError(f"{arch}: parked {name} field {f} differs between "
+                                             "the kernel and the plain route")
+                x = raw[name].reshape(-1).float()
+                err = float((x - fz.decompress(c, plain_fz)).abs().max())
+                eb = float(c.eb_abs)
+                if not err <= eb * (1 + 2**-20) + float(x.abs().max()) * 2**-22:
+                    raise AssertionError(f"{arch}: a parked {name} breaks the bound: {err} > {eb}")
+                worst = max(worst, err / eb)
+        parks, lk = len(seen_k), launches[arch]
+        want = parks * len(fz_names)
+        if parks != n_new - 1 or not fz_names or not (
+                lk["fused_compress"] == lk["fused_decompress"] == want) or \
+                sum(lk.values()) != 2 * want:
+            raise AssertionError(f"{arch}: {parks} parks of {fz_names} launched {lk}, not K4 = "
+                                 f"K6 = {want}")
+        last = seen_k[-1]
+        leaves = ", ".join(
+            f"{name} {tuple(last[0][name].shape)} {str(last[0][name].dtype).replace('torch.', '')}"
+            f" CR {last[1][name][1].compression_ratio():.2f}" for name in fz_names)
+        say(17, f"{card} | {arch} Engine.generate(park_between=True), batch {B}, prompt {S}, "
+                f"{n_new} tokens, rel eb {RECURRENT_EB}: kernel route {wall_k:.2f} s "
+                f"({B * n_new / wall_k:.1f} tokens/s, parking included), plain route "
+                f"{wall_p:.2f} s; tokens, final caches and all {parks * len(fz_names)} parked "
+                f"containers bit for bit equal between the routes; every parked leaf within "
+                f"its bound (worst max_err/eb {worst:.6f}); K4 {lk['fused_compress']} = K6 "
+                f"{lk['fused_decompress']} = {parks} parks x {len(fz_names)} leaves, the plain "
+                f"route none; parked leaves (last park): {leaves}")
+        # times: a decode step, a park and a resume of the final cache, a prefill
+        cache, tok = cache_k, toks_k[:, -1]
+        parked = eng_k.park(cache)
+        decode_ms = cuda_ms(lambda: model.decode(params, cache, tok), iters=5, warmup=1)
+        park_ms = cuda_ms(lambda: eng_k.park(cache), iters=5, warmup=1)
+        resume_ms = cuda_ms(lambda: eng_k.resume(parked), iters=5, warmup=1)
+        prefill_ms = cuda_ms(lambda: model.prefill(params, batch), iters=3, warmup=1)
+        raw_mb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e6
+        say(17, f"{card} | {arch} times (CUDA events, host included): prefill {prefill_ms:.3f} "
+                f"ms, decode step {decode_ms:.3f} ms ({B / decode_ms * 1e3:.1f} tokens/s "
+                f"unparked), park {park_ms:.3f} ms, resume {resume_ms:.3f} ms of the "
+                f"{raw_mb:.1f} MB cache")
+        say(17, f"{card} | " + split_line(f"{arch} prefill", *profile_split(
+            lambda: model.prefill(params, batch), ranges)))
+        say(17, f"{card} | " + split_line(f"{arch} parked decode step (park, resume, decode)",
+                                          *profile_split(lambda: model.decode(
+                                              params, eng_k.resume(eng_k.park(cache)), tok),
+                                              ranges)))
+        # the recurrence at full size: prefill S, then one decode step, against
+        # prefill S + 1 over the same tokens
+        with torch.no_grad():
+            l_pre, c_pre = model.prefill(params, batch)
+            step_l, _ = model.decode(params, c_pre, toks_k[:, 0])
+            longer = dict(batch, tokens=torch.cat([batch["tokens"], toks_k[:, :1]], dim=1))
+            full_l, _ = model.prefill(params, longer)
+        diff = float((step_l.float() - full_l.float()).abs().max())
+        if not np.isfinite(diff):
+            raise AssertionError(f"{arch}: prefill S + 1 or decode gave non-finite logits")
+        say(17, f"{card} | {arch}: prefill {S} + one decode step against prefill {S + 1}: "
+                f"largest logit difference {diff:.6f} (max |logit| "
+                f"{float(full_l.float().abs().max()):.3f}); peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {lk}; done in "
+                f"{time.time() - t0:.1f} s")
+        del model, params, runs, seen_k, seen_p, cache, cache_k, cache_p, eng_k, eng, gen, \
+            rec_park, park, parked, c_pre
+
+    # -- 17d: training, cut in depth, through the compressed reduce -----------------
+    fresh_group = not dist.is_initialized()
+    mesh = lmesh.make_mesh((1, 1, 1), ("pod", "data", "model"), device=dev)
+    backend = dist.get_backend()
+    shape = ShapeConfig(*RECURRENT_TRAIN_SHAPE)
+    gc_k = car.GradCompressionConfig(enabled=True, kernel_mode="fused")
+    try:
+        for (arch, layers), path in zip(RECURRENT_TRAIN, train_paths):
+            fresh()
+            t0 = time.time()
+            full = configs.get(arch)
+            cfg = dataclasses.replace(full, n_layers=layers)
+            model = zoo.build(cfg)
+            n_fz = sum(1 for t in pytree.leaves(model.abstract_params())
+                       if t.dtype.is_floating_point and t.numel() >= gc_k.min_leaf_size)
+            p0 = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+            out = {}
+            for use_kernels in (True, False):
+                t = Trainer(model, shape, mesh, TrainConfig(
+                    grad_compress=dataclasses.replace(gc_k, use_kernels=use_kernels),
+                    warmup_steps=1), stream=TokenStream(cfg.vocab, shape.seq_len,
+                                                       shape.global_batch, seed=0),
+                    init_params=p0, device=dev)
+                fn = lambda t=t: t.run(RECURRENT_TRAIN_STEPS)    # noqa: E731
+                hist = drive(path, fn) if use_kernels else plain(fn, path)
+                out[use_kernels] = (t.info["mode"], hist, t._state())
+                del t
+            (mode, hist_k, state_k), (_, hist_p, state_p) = out[True], out[False]
+            la, lb = pytree.leaves_with_keys(state_k), pytree.leaves_with_keys(state_p)
+            if [k for k, _ in la] != [k for k, _ in lb] or not all(
+                    same(a, b) for (_, a), (_, b) in zip(la, lb)):
+                raise AssertionError(f"{arch} training: the kernel route's state differs from "
+                                     "the plain route's")
+            if [h["loss"] for h in hist_k] != [h["loss"] for h in hist_p] or not all(
+                    np.isfinite(h["loss"]) for h in hist_k):
+                raise AssertionError(f"{arch} training losses: kernel {hist_k}, plain {hist_p}")
+            tl = launches[path]
+            if not tl["fused_compress"] == tl["fused_decompress"] == RECURRENT_TRAIN_STEPS * n_fz:
+                raise AssertionError(f"{arch} training launched {tl}, not K4 = K6 = steps x "
+                                     f"{n_fz} leaves")
+            say(17, f"{card} | {arch} training at its published width, depth {full.n_layers} -> "
+                    f"{layers} layers ({model.param_count():,} parameters), {shape}, "
+                    f"{RECURRENT_TRAIN_STEPS} Trainer steps on make_mesh((1, 1, 1), ('pod', "
+                    f"'data', 'model')) ({backend}, world size 1), mode {mode}: losses "
+                    f"{[round(h['loss'], 6) for h in hist_k]}, ms a step "
+                    f"{[round(h['seconds'] * 1e3, 1) for h in hist_k]} (kernel route; plain "
+                    f"{[round(h['seconds'] * 1e3, 1) for h in hist_p]}); params, optimizer and "
+                    f"error state of the kernel route equal to the plain route's bit for bit; "
+                    f"K4 {tl['fused_compress']} = K6 {tl['fused_decompress']} = "
+                    f"{RECURRENT_TRAIN_STEPS} steps x {n_fz} leaves; peak allocated "
+                    f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; done in "
+                    f"{time.time() - t0:.1f} s")
+            del model, p0, out, state_k, state_p, la, lb
+    finally:
+        if fresh_group:
+            dist.destroy_process_group()
+    fresh()
+    say(17, f"recurrent and audio phase done in {time.time() - t_phase:.1f} s")
     return launches
 
 
@@ -3091,6 +3414,7 @@ def main() -> int:
     wire = wire_phase(card, dev)
     train = train_phase(card, dev)
     zoo_launches = zoo_phase(card, dev)
+    recurrent_launches = recurrent_phase(card, dev)
     pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
     for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10
         row["max_abs_err"] = max_err[row["name"]]
@@ -3106,6 +3430,9 @@ def main() -> int:
         # phase 16's main paths: dbrx and llama4 served, qwen2-vl parked, dbrx trained
         row["zoo_launches"] = {path: counts[row["name"]]
                                for path, counts in zoo_launches.items()}
+        # phase 17's main paths: rwkv6, zamba2 and whisper parked, rwkv6 and zamba2 trained
+        row["recurrent_launches"] = {path: counts[row["name"]]
+                                     for path, counts in recurrent_launches.items()}
     say(10, f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port serves the reference's ``transformer`` family: the dense decoders
-(glm4-9b, internlm2-20b, yi-6b, mistral-large-123b), the MoE decoders
-(dbrx-132b, llama4-scout-17b-a16e) and the M-RoPE VLM backbone (qwen2-vl-72b).
-The recurrent and audio architectures of the reference registry (rwkv6-3b,
-zamba2-2.7b, whisper-tiny) are known by id and raise ``NotImplementedError``
-until their family is ported (ROADMAP, queue 1 item 5).
+The reference's whole registry: the dense decoders (glm4-9b, internlm2-20b,
+yi-6b, mistral-large-123b), the MoE decoders (dbrx-132b, llama4-scout-17b-a16e),
+the M-RoPE VLM backbone (qwen2-vl-72b), the recurrent RWKV-6 (rwkv6-3b), the
+Mamba2 hybrid (zamba2-2.7b) and the audio encoder-decoder (whisper-tiny).
 """
 from importlib import import_module
 
@@ -24,15 +22,14 @@ _MODULES = {
     "dbrx-132b": "dbrx_132b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "whisper-tiny": "whisper_tiny",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 
 def get(arch_id: str, smoke: bool = False) -> ArchConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {', '.join(ARCH_IDS)}")
-    if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"{arch_id} is not a transformer decoder; its family is not ported yet "
-            "(ROADMAP, queue 1 item 5)")
     mod = import_module(f"{__name__}.{_MODULES[arch_id]}")
     return mod.SMOKE if smoke else mod.CONFIG

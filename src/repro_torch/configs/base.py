@@ -30,6 +30,17 @@ class ArchConfig:
     shared_expert: bool = False
     # VLM (qwen2-vl M-RoPE; the vision frontend is stubbed, as in the reference)
     mrope_sections: tuple[int, int, int] | None = None
+    # audio (whisper; the conv frontend is stubbed, as in the reference)
+    n_audio_ctx: int = 0
+    n_enc_layers: int = 0
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_width: int = 4
+    shared_attn_every: int = 0       # zamba2: the shared attention block's cadence
+    # RWKV
+    rwkv_head_dim: int = 64
     remat: bool = True               # recompute each layer in the backward pass
 
     @property
@@ -46,12 +57,19 @@ class ArchConfig:
         return self.family in ("ssm", "hybrid")
 
     def reduced(self, **overrides) -> "ArchConfig":
-        """Same-family tiny config for CPU tests (the reference's shrink of the
-        dense, MoE and M-RoPE fields)."""
-        base = dict(arch_id=self.arch_id + "-smoke", n_layers=min(self.n_layers, 2),
-                    d_model=128, n_heads=4, n_kv_heads=max(1, min(self.n_kv_heads, 2)),
-                    d_ff=256, vocab=512, head_dim=32,
-                    n_experts=min(self.n_experts, 4), top_k=min(self.top_k, 2))
+        """Same-family tiny config for CPU tests (the reference's shrink)."""
+        base = dict(
+            arch_id=self.arch_id + "-smoke",
+            n_layers=min(self.n_layers, 4 if (self.shared_attn_every or self.n_enc_layers) else 2),
+            d_model=128, n_heads=4, n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            d_ff=256, vocab=512, head_dim=32,
+            n_experts=min(self.n_experts, 4), top_k=min(self.top_k, 2),
+            n_audio_ctx=min(self.n_audio_ctx, 64),
+            n_enc_layers=min(self.n_enc_layers, 2),
+            ssm_state=min(self.ssm_state, 16), ssm_head_dim=32 if self.ssm_state else 64,
+            shared_attn_every=2 if self.shared_attn_every else 0,
+            rwkv_head_dim=32 if self.family == "ssm" else 64,
+        )
         if self.mrope_sections:
             base["mrope_sections"] = (4, 6, 6)  # sums to head_dim/2 = 16
         base.update(overrides)

@@ -6,12 +6,15 @@ the paged FZ KV pool with continuous batching. The port of ``repro/launch/serve.
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --kv-compress --device cpu
     python -m repro_torch.launch.serve --arch dbrx-132b --smoke --paged --device cpu
     python -m repro_torch.launch.serve --arch qwen2-vl-72b --smoke --kv-compress --device cpu
+    python -m repro_torch.launch.serve --arch whisper-tiny --smoke --kv-compress --device cpu
 
 Weights are random, drawn from a ``torch.Generator`` seeded 0 on the device.
 ``--paged`` decodes through K7 and compresses cold pages through K4/K6;
 ``--no-kernels`` takes the plain route. M-RoPE archs (qwen2-vl-72b) serve
 through the whole cache only, with position ids 0..S-1 on all three axes (the
-vision frontend is stubbed). Runs on the CUDA card unless
+vision frontend is stubbed). The recurrent and audio archs (rwkv6-3b,
+zamba2-2.7b, whisper-tiny) serve through the whole cache only, whisper with
+zero ``audio_embeds`` (the conv frontend is stubbed). Runs on the CUDA card unless
 ``--device cpu`` is given. Telemetry (``repro_torch.obs.cli``):
 ``--trace-out PATH`` writes the spans as a Chrome trace, ``--metrics-out
 PATH`` the metric registry and sentinel violations as JSON, and
@@ -87,6 +90,9 @@ def main(argv: list[str] | None = None) -> dict:
     if cfg.mrope_sections is not None:
         batch["positions"] = np.broadcast_to(np.arange(args.prompt_len, dtype=np.int32),
                                              (args.batch, 3, args.prompt_len)).copy()
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.zeros((args.batch, cfg.n_audio_ctx, cfg.d_model),
+                                            dtype=torch.bfloat16, device=dev)
     eng = Engine(model, params, kv_compress=KVCompressionConfig(
         enabled=args.kv_compress, eb=args.kv_eb, use_kernels=use_kernels), device=dev)
     toks, cache = eng.generate(batch, args.tokens, park_between=args.kv_compress)

@@ -81,10 +81,12 @@ def grad_tap(tree: Any, name: str = "") -> Any:
 class Param:
     shape: tuple[int, ...]
     logical: tuple[str | None, ...] = ()   # logical axis per dim: "fsdp"|"tp"|None
-    init: str = "normal"                 # "normal"|"ones"|"embed"|"scaled"
+    init: str = "normal"                 # "normal"|"zeros"|"ones"|"embed"|"scaled"
     dtype: torch.dtype = torch.bfloat16
 
     def materialize(self, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=self.dtype, device=device)
         if self.init == "embed":
@@ -149,6 +151,14 @@ def param_count(defs: dict) -> int:
     return total
 
 
+def unstack(stack: dict) -> list[dict]:
+    """A ``[L, ...]`` layer stack as L per-layer dicts: one ``torch.unbind`` a
+    leaf, whose backward stacks the layers' gradients once."""
+    names = sorted(stack)
+    return [dict(zip(names, slices))
+            for slices in zip(*(torch.unbind(stack[n], 0) for n in names))]
+
+
 # ---------------------------------------------------------------------------
 # Stateless layer math
 # ---------------------------------------------------------------------------
@@ -180,12 +190,17 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, every op rounded to x's type: the reference's
+    bfloat16 ``jax.nn.sigmoid`` rounds at these places (a fused float32
+    sigmoid differs in the last bit for about a third of bfloat16 inputs)."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * sigmoid(x)`` with ``sigmoid = 1 / (1 + exp(-x))``, every op rounded
-    to x's type: the reference's bfloat16 ``jax.nn.silu`` rounds at these places
-    (a fused float32 sigmoid differs in the last bit for about a third of
-    bfloat16 inputs)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """``x * sigmoid(x)``, each op rounded to x's type, as the reference's
+    bfloat16 ``jax.nn.silu``."""
+    return x * sigmoid(x)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -33,13 +33,9 @@ from .attention import (apply_mrope, apply_rope, decode_attention, flash_attenti
 CACHE_MARGIN = 128  # decode slots past the prefill length
 DP = "fsdp"
 TP = "tp"
-FAMILIES = ("dense", "moe", "vlm")
 
 
 def layer_defs(cfg: ArchConfig) -> dict:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"{cfg.family} layers are not ported yet "
-                                  "(ROADMAP, queue 1 item 5)")
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     defs = {
@@ -153,11 +149,8 @@ def forward_train(params: dict, cfg: ArchConfig, batch: dict):
     x = nn.shard_act(nn.embed_lookup(tokens, nn.grad_tap(params["embed"], "embed")),
                      ("dp", None, None))
     pos = _positions(cfg, batch, S, B)
-    stack = nn.grad_tap(params["layers"], "layers")
-    names = sorted(stack)
     auxs = []
-    for slices in zip(*(torch.unbind(stack[n], 0) for n in names)):
-        lp = dict(zip(names, slices))
+    for lp in nn.unstack(nn.grad_tap(params["layers"], "layers")):
         if cfg.remat:
             x, aux = checkpoint(_block_train, lp, x, cfg, pos, use_reentrant=False)
         else:

@@ -9,13 +9,15 @@
     logits, cache = model.prefill_suffix(params, prefix, batch)
     specs = model.input_specs(shape)       # meta tensors + logical shardings
 
-``build`` takes the reference's ``transformer`` families: dense, moe and vlm.
-The page-native paths (``decode_paged``, ``prefill_suffix``) exist where the
-reference's gate allows them: dense and moe, and vlm without M-RoPE. An M-RoPE
-model's are ``None``: the pool's paged decode rotates by the 1-D cache length,
-where M-RoPE takes (B, 3, S) position ids. ``build`` raises
-``NotImplementedError`` for the recurrent and audio families (ROADMAP, queue 1
-item 5).
+``build`` dispatches on the family, as the reference's does: dense, moe and
+vlm to ``transformer``, hybrid to ``zamba2``, ssm to ``rwkv6`` and audio to
+``whisper``. The page-native paths (``decode_paged``, ``prefill_suffix``) exist
+where the reference's gate allows them: dense and moe, and vlm without M-RoPE.
+Elsewhere they are ``None`` (``WholeCacheModel``): an M-RoPE model's, because
+the pool's paged decode rotates by the 1-D cache length where M-RoPE takes
+(B, 3, S) position ids, and the recurrent and audio families', whose caches
+are not plain k/v/length caches. ``input_specs`` adds the stubbed audio
+frontend's ``audio_embeds`` (B, n_audio_ctx, d) bfloat16 for the audio family.
 """
 from __future__ import annotations
 
@@ -25,17 +27,26 @@ import torch
 
 from .. import pytree
 from ..configs.base import ArchConfig, ShapeConfig
-from . import nn, transformer
+from . import nn, rwkv6, transformer, whisper, zamba2
 
 DP = "dp"    # batch/activation axis -> ("pod", "data")
+
+FAMILY_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+                  "hybrid": zamba2, "ssm": rwkv6, "audio": whisper}
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
 
+    @property
+    def family_module(self):
+        """The module of the config's family (``transformer``, ``zamba2``,
+        ``rwkv6`` or ``whisper``)."""
+        return FAMILY_MODULES[self.cfg.family]
+
     def defs(self) -> dict:
-        return transformer.model_defs(self.cfg)
+        return self.family_module.model_defs(self.cfg)
 
     def init(self, generator: torch.Generator | None = None, *, device="cuda") -> dict:
         """Random parameters from ``generator`` (default: seed 0 on ``device``)."""
@@ -65,22 +76,28 @@ class Model:
         return total - expert + expert * cfg.top_k // cfg.n_experts
 
     def train_loss(self, params, batch):
-        return transformer.forward_train(params, self.cfg, batch)
+        return self.family_module.forward_train(params, self.cfg, batch)
 
     def input_specs(self, shape: ShapeConfig) -> tuple[dict, dict]:
-        """(structs, logical shardings) of the step's inputs: ``meta`` int32
-        tensors of the shape's sizes, and each input's logical axes."""
+        """(structs, logical shardings) of the step's inputs: ``meta`` tensors
+        of the shape's sizes (int32; the audio frontend's embeddings bfloat16),
+        and each input's logical axes."""
+        cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
-        mrope = self.cfg.mrope_sections is not None
+        mrope = cfg.mrope_sections is not None
 
-        def struct(*dims):
-            return torch.empty(dims, dtype=torch.int32, device="meta")
+        def struct(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
         if shape.kind in ("train", "prefill"):
             specs, shards = {"tokens": struct(B, S)}, {"tokens": (DP, None)}
             if shape.kind == "train":
                 specs["labels"], shards["labels"] = struct(B, S), (DP, None)
             if mrope:
                 specs["positions"], shards["positions"] = struct(B, 3, S), (DP, None, None)
+            if cfg.family == "audio":
+                specs["audio_embeds"] = struct(B, cfg.n_audio_ctx, cfg.d_model,
+                                               dtype=torch.bfloat16)
+                shards["audio_embeds"] = (DP, None, None)
             return specs, shards
         specs, shards = {"token": struct(B)}, {"token": (DP,)}
         if mrope:
@@ -88,10 +105,10 @@ class Model:
         return specs, shards
 
     def prefill(self, params, batch):
-        return transformer.forward_prefill(params, self.cfg, batch)
+        return self.family_module.forward_prefill(params, self.cfg, batch)
 
     def decode(self, params, cache, token, positions=None):
-        return transformer.forward_decode(params, self.cfg, cache, token, positions)
+        return self.family_module.forward_decode(params, self.cfg, cache, token, positions)
 
     def decode_paged(self, params, pages, token, use_kernels: bool = True):
         return transformer.forward_decode_paged(params, self.cfg, pages, token,
@@ -101,21 +118,20 @@ class Model:
         return transformer.forward_prefill_suffix(params, self.cfg, prefix, batch)
 
     def make_cache(self, B: int, S: int, *, device) -> dict:
-        return transformer.init_cache(self.cfg, B, S, device=device)
+        return self.family_module.init_cache(self.cfg, B, S, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
 class WholeCacheModel(Model):
-    """A model without the page-native paths (M-RoPE): it serves through the
-    whole cache only."""
+    """A model without the page-native paths (M-RoPE, recurrent, audio): it
+    serves through the whole cache only."""
     decode_paged = None
     prefill_suffix = None
 
 
 def build(cfg: ArchConfig) -> Model:
-    if cfg.family not in transformer.FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} ({cfg.arch_id}) is not ported "
-                                  "yet (ROADMAP, queue 1 item 5)")
-    if cfg.family in ("dense", "moe") or cfg.mrope_sections is None:
+    if cfg.family not in FAMILY_MODULES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family in ("dense", "moe") or (cfg.family == "vlm" and cfg.mrope_sections is None):
         return Model(cfg)
     return WholeCacheModel(cfg)

@@ -24,10 +24,13 @@ route; on the card the tuner never picks the plain route).
 ``Engine.attention_workload`` is the tuning point of that choice with the
 engine's own geometry, so a pre-tune measures the paged route it serves.
 
-A model without page-native paths (M-RoPE: ``model.decode_paged is None``)
-serves through the whole cache only: ``make_pool`` raises
-``NotImplementedError`` for it, as the reference's does, and the engine's
-``prefill_suffix`` is ``None``.
+A model without page-native paths (M-RoPE, recurrent and audio:
+``model.decode_paged is None``) serves through the whole cache only:
+``make_pool`` raises ``NotImplementedError`` for it, as the reference's does
+for every cache that is not a plain k/v/length cache and for M-RoPE, and the
+engine's ``prefill_suffix`` is ``None``. ``compress_cache`` parks every float
+leaf of at least ``min_leaf_size`` elements in its own type: the bfloat16 K/V
+and the float32 recurrent states (``wkv``, ``sh_a``, ``sh_f``, ``ssm``) alike.
 
 Telemetry, as the reference's: ``engine.prefill``, ``engine.decode_step``,
 ``engine.decode_step_paged``, ``engine.park``, ``engine.resume`` and
@@ -202,6 +205,10 @@ class Engine:
         if self.pool_cfg is None:
             raise ValueError("Engine was built without a PoolConfig")
         cfg = self.model.cfg
+        cache = self.model.make_cache(1, 1, device="meta")
+        if set(cache) != {"k", "v", "length"}:
+            raise NotImplementedError(f"paged KV pool supports plain k/v/length caches; "
+                                      f"{cfg.arch_id} has {sorted(cache)}")
         if cfg.mrope_sections is not None:
             raise NotImplementedError(
                 f"paged KV pool supports plain k/v/length caches with 1-D positions; "

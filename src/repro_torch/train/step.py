@@ -90,7 +90,9 @@ def _value_and_grad(model: zoo.Model, params, batch, reducer=None):
         loss, _ = model.train_loss(pytree.unflatten(params, flat), batch)
     finally:
         nn.set_grad_tap(None)
-    grads = pytree.unflatten(params, list(torch.autograd.grad(loss, flat)))
+    # an unused parameter (Mamba2's dt_bias) gets zeros, as under jax.grad
+    grads = pytree.unflatten(params, list(torch.autograd.grad(loss, flat,
+                                                              materialize_grads=True)))
     if reducer is not None:
         reducer.settle(grads)
     return loss.detach(), grads

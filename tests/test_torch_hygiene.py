@@ -40,7 +40,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.train import TrainConfig, Trainer, build_train_step
 from repro_torch.models import nn as tnn
 from repro_torch.models import zoo
-from repro_torch.serve import Engine, PagePool, PoolConfig
+from repro_torch.serve import Engine, KVCompressionConfig, PagePool, PoolConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -95,6 +95,7 @@ def _attn_inputs():
 
 
 SMOKE = configs.get("yi-6b", smoke=True)
+RECURRENT_AUDIO = ("rwkv6-3b", "zamba2-2.7b", "whisper-tiny")
 SHAPE = ShapeConfig("tiny", 8, 2, "train")
 _STAND_IN = type("Mesh", (), {"axis_names": ("data", "model"),
                               "shape": {"data": 1, "model": 1}})()
@@ -128,6 +129,13 @@ ENTRY_POINTS = {
     "PagePool": lambda x, c: PagePool(PoolConfig(), n_layers=2, n_kv_heads=2, head_dim=8),
     "Engine": lambda x, c: Engine(zoo.build(SMOKE), {}, pool=PoolConfig()),
     "launch.serve": lambda x, c: launch_serve.main(["--arch", "yi-6b", "--smoke", "--paged"]),
+    **{f"model.init[{arch}]": (lambda x, c, arch=arch: zoo.build(
+        configs.get(arch, smoke=True)).init()) for arch in RECURRENT_AUDIO},
+    **{f"Engine[{arch}]": (lambda x, c, arch=arch: Engine(
+        zoo.build(configs.get(arch, smoke=True)), {},
+        kv_compress=KVCompressionConfig(enabled=True))) for arch in RECURRENT_AUDIO},
+    **{f"launch.serve[{arch}]": (lambda x, c, arch=arch: launch_serve.main(
+        ["--arch", arch, "--smoke", "--kv-compress"])) for arch in RECURRENT_AUDIO},
     "make_mesh": lambda x, c: compat.make_mesh((1,), ("pod",)),
     "init_error_state": lambda x, c: car.init_error_state(
         {"w": torch.from_numpy(x)}, 2, car.GradCompressionConfig(enabled=True)),

@@ -84,13 +84,18 @@ def test_dense_configs_match_reference(arch, smoke):
     assert t.hd == j.hd
 
 
-def test_other_families_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("rwkv6-3b")
+def test_unknown_arch_raises_and_other_families_build():
+    """An unknown id raises ``KeyError``; the recurrent family resolves and
+    builds (its own tests: ``tests/test_torch_ssm.py``), an unknown family
+    raises ``ValueError`` as the reference's ``zoo.build``."""
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.build(configs.get("yi-6b").reduced(family="ssm"))
+    cfg = configs.get("rwkv6-3b")
+    assert cfg.family == "ssm" and configs.get("rwkv6-3b", smoke=True).rwkv_head_dim == 32
+    model = zoo.build(cfg)
+    assert model.decode_paged is None and model.param_count() == 3_073_315_840
+    with pytest.raises(ValueError, match="unknown family"):
+        zoo.build(configs.get("yi-6b").reduced(family="no-such-family"))
 
 
 def test_params_carry_over_bit_for_bit(models):

@@ -60,6 +60,7 @@ from repro_torch.serve.kvpool import PoolConfig, pages_from_cache, tracegen
 
 MOE_ARCHS = ["dbrx-132b", "llama4-scout-17b-a16e"]
 VLM_ARCH = "qwen2-vl-72b"
+RECURRENT_AUDIO_ARCHS = ["rwkv6-3b", "zamba2-2.7b", "whisper-tiny"]
 ROUTE_TOL = 1e-6
 OUT_TOL = 0.0625
 LOGIT_TOL = 0.125
@@ -112,17 +113,13 @@ def _bf16(a: np.ndarray):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", [*MOE_ARCHS, VLM_ARCH])
+@pytest.mark.parametrize("arch", [*MOE_ARCHS, VLM_ARCH, *RECURRENT_AUDIO_ARCHS])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_reference(arch, smoke):
-    """``CONFIG`` and ``SMOKE`` field for field; the reference's recurrent and
-    audio fields, which the port leaves out, sit at their defaults."""
+    """``CONFIG`` and ``SMOKE`` field for field, every field of the reference's
+    schema."""
     j, t = jconfigs.get(arch, smoke=smoke), configs.get(arch, smoke=smoke)
-    jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
-    assert {k: jd[k] for k in td} == td
-    defaults = {f.name: f.default for f in dataclasses.fields(j)}
-    assert all(jd[k] == defaults[k] for k in set(jd) - set(td)
-               if k not in ("ssm_head_dim", "rwkv_head_dim"))
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert (t.hd, t.attention_free, t.supports_long_context) == \
         (j.hd, j.attention_free, j.supports_long_context)
     jm, m = jzoo.build(j), zoo.build(t)
@@ -130,15 +127,16 @@ def test_configs_match_reference(arch, smoke):
     assert m.active_param_count() == jm.active_param_count()
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b", "whisper-tiny"])
-def test_recurrent_and_audio_archs_still_raise(arch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        configs.get(arch)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        configs.get(arch, smoke=True)
-    fam = jconfigs.get(arch).family
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        zoo.build(configs.get("yi-6b").reduced(family=fam))
+@pytest.mark.parametrize("arch", RECURRENT_AUDIO_ARCHS)
+def test_recurrent_and_audio_archs_build(arch):
+    """They resolve, full and SMOKE, and build without the page-native paths, as
+    the reference's gate (``repro/models/zoo.py:159``); their own tests are
+    ``tests/test_torch_ssm.py`` and ``tests/test_torch_audio.py``."""
+    for smoke in (False, True):
+        cfg = configs.get(arch, smoke=smoke)
+        assert cfg.family == jconfigs.get(arch).family
+        model = zoo.build(cfg)
+        assert model.decode_paged is None and model.prefill_suffix is None
 
 
 def test_full_width_two_layer_counts():

@@ -288,6 +288,30 @@ def test_seeded_trace_matches_the_reference(ref, engines):
     assert summary == tracegen.latency_summary(jstats)
 
 
+@pytest.mark.parametrize("cold_entropy", [False, True])
+@pytest.mark.parametrize("prefix_mode", ["copy", "off"])
+def test_seeded_trace_prefix_modes_match_the_reference(ref, engines, prefix_mode,
+                                                       cold_entropy, record_property):
+    """The seed-0 trace at ``prefix_mode`` copy and off, cold pages entropy-coded
+    or not: every scheduling count equals the reference's, tokens agree."""
+    jm, jp, model, params = engines
+    kw = dict(prefix_mode=prefix_mode, cold_entropy=cold_entropy)
+    jreqs = [ref.kvpool.Request(req_id=r.req_id, tokens=r.tokens, n_new=r.n_new,
+                                priority=r.priority, arrive_at=r.arrive_at) for r in _trace()]
+    jeng = ref.Engine(jm, jp, pool=ref.kvpool.PoolConfig(**_pool_cfg(**kw)))
+    jout, jstats, _ = jeng.serve(jreqs, max_batch=2)
+    eng = Engine(model, params, device="cpu",
+                 pool=PoolConfig(**_pool_cfg(use_kernels=False, **kw)))
+    out, stats, pool = eng.serve(_trace(), max_batch=2)
+    for f in SCHED_FIELDS:
+        assert getattr(stats, f) == getattr(jstats, f), f
+    assert stats.tiered_pages > 0 and not pool.pages
+    assert (stats.prefix_hits > 0) == (prefix_mode != "off")
+    agree = float(np.mean([float((out[i] == np.asarray(jout[i])).mean()) for i in jout]))
+    record_property("token_agreement", agree)
+    assert sorted(out) == sorted(jout) and agree >= 0.9, agree
+
+
 def test_preemption_parks_the_lowest_priority(engines):
     _, _, model, params = engines
     eng = Engine(model, params, device="cpu",

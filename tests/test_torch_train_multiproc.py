@@ -211,13 +211,20 @@ def _spawn(directory):
 
 @pytest.fixture(scope="module")
 def jref():
-    """The reference's modules with the jax 0.9 aliases, for this module's tests."""
+    """The reference's modules with the jax 0.9 aliases, for this module's tests.
+    The oracle composes the reference's step on no mesh, so the reference's
+    process-wide activation sharder and gradient tap are cleared for the
+    module: a reference ``build_train_step`` run earlier in this process
+    leaves its mesh's sharder installed (``repro/train/step.py:43-50``)."""
     import jax
     import jax._src.core as jcore
     from jax.experimental.pallas import tpu as pltpu
+    from repro.models import nn as jnn
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax.core, "trace_state_clean", jcore.trace_state_clean, raising=False)
         mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams, raising=False)
+        mp.setattr(jnn, "_ACT_SHARDER", None)
+        mp.setattr(jnn, "_GRAD_TAP", None)
         from repro import configs, optim
         from repro.dist import compressed_allreduce as car
         from repro.models import zoo
