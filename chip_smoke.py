@@ -4,8 +4,10 @@ serving path (Yi-6B over the paged FZ KV pool with K7 flash-decode), the
 gradient wire and checkpoints, training (Yi-6B's width, K4/K6 in the
 compressed gradient mean of every step), the MoE and M-RoPE decoders
 (dbrx-132b, llama4-scout-17b-a16e, qwen2-vl-72b at their published widths),
-and the recurrent and audio families (rwkv6-3b, zamba2-2.7b, whisper-tiny at
-their published sizes, their whole caches parked through K4/K6).
+the recurrent and audio families (rwkv6-3b, zamba2-2.7b, whisper-tiny at
+their published sizes, their whole caches parked through K4/K6), the four
+examples at their own sizes, and the analysis passes with the host-sync lint's
+runtime twin.
 
     python3 chip_smoke.py          # from the root of the repository, on a card
 
@@ -270,6 +272,27 @@ Phases (each prints its own lines):
      leaves past ``min_leaf_size``. The ``kernels`` JSON gives each kernel's
      launches on each of these paths as ``recurrent_launches``.
 
+  18. the package surface's entry points and the analysis passes, after phase
+     17: (a) the four examples (``repro_torch.examples``) in-process at their own
+     sizes through their ``main``: quickstart at (128, 128, 64) (the staged
+     route's K1-K3 and the default route's K5/K6), compress_field at its
+     default and at the 512^3 turbulent field (K5/K6; its CR column equal to
+     the plain route's on the card digit for digit), serve_compressed_kv's full
+     mode with ``--kernels`` (K4, K6, K7) and without (no launch; identical
+     scheduling counts, tokens agreeing as phase 8's bar), and train_lm (~65M
+     parameters) killed at step 55 of 60 and relaunched to 70 in the same
+     checkpoint directory (resumed at step 50; K5 saves, K6 restores). Each
+     example's own asserts hold and each kernel of its path launched; wall
+     times printed; the ``kernels`` JSON gives each kernel's launches on each
+     example as ``example_launches``. (b) ``python -m repro_torch.analysis
+     --check`` with all four passes, the resource pass with the card's ptxas
+     figures and C-side shared bytes. (c) the host-sync lint's runtime twin:
+     Yi-6B serves phase 8's trace and pool on the kernel route, and fused
+     compress / decompress run at (100, 500, 500), under
+     ``torch.cuda.set_sync_debug_mode("warn")``; the innermost ``repro_torch``
+     frame of every synchronizing call is a function the static ``host-sync``
+     findings or the baseline list. The syncs a decode step are printed.
+
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
 ``dense`` accumulates; the port's modules change no global state.
@@ -283,6 +306,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -432,6 +456,29 @@ RECURRENT_TRAIN_SHAPE = ("local", 4096, 2, "train")   # train_4k's sequence, glo
 RECURRENT_TRAIN_STEPS = 2
 # the recurrences' own ops, each in a named range for the profiler's split
 RECURRENT_RANGES = (("rwkv6", "_wkv_chunked"), ("mamba2", "_ssd_chunked"), ("mamba2", "_conv"))
+# phase 18: the four examples at their own sizes, each with the kernels it must
+# launch on the card (the defaults: strict mode, so quickstart's bounds and
+# compress_field run K5/K6; quickstart's kernel path is the staged route; the
+# serving example parks cold pages in paper mode through K4; train_lm's FZ
+# checkpoints save through K5 and restore through K6)
+EXAMPLE_PATHS = {
+    "quickstart": ("lorenzo_quant", "bitshuffle_flag", "bitunshuffle_tiles",
+                   "fused_shuffle_encode", "fused_decompress"),
+    "compress_field": ("fused_shuffle_encode", "fused_decompress"),
+    "compress_field turbulent 512^3": ("fused_shuffle_encode", "fused_decompress"),
+    "serve_compressed_kv --kernels": ("fused_compress", "fused_decompress", "flash_decode"),
+    "serve_compressed_kv": (),
+    "train_lm": ("fused_shuffle_encode",),
+    "train_lm resumed": ("fused_shuffle_encode", "fused_decompress"),
+}
+EXAMPLE_FIELDS = (("compress_field", "wavefront", (128, 128, 64)),   # its default
+                  ("compress_field turbulent 512^3", "turbulent", (512, 512, 512)))
+# train_lm: the first run to 60 steps is killed at step 55 (an interrupt from its
+# data loader), so its newest checkpoint is step 50; the relaunch goes to 70
+TRAIN_LM_STEPS, TRAIN_LM_KILL = (60, 70), 55
+TRAIN_LM_ARGS: tuple[str, ...] = ()     # the example's own batch 8, sequence 256
+TRAIN_LM_DIR = ROOT / "chiprun_out" / "train_lm"      # listed in .gitignore
+SYNC_FIELD = (100, 500, 500)       # the compressor's calls under the sync debug mode
 
 
 def say(phase, msg):
@@ -2658,6 +2705,280 @@ def recurrent_phase(card, dev) -> dict:
     return launches
 
 
+def example_phase(card, dev) -> dict:
+    """Phase 18a: the four examples (``repro_torch.examples``) in-process at
+    their own sizes, each through its ``main`` with the launch counts set to 0
+    just before and read just after. Gates: each example's own asserts; each
+    kernel of its path (``EXAMPLE_PATHS``) launched; compress_field's CR column
+    equal to the plain route's on the card digit for digit; the serving
+    example's two routes with identical scheduling counts and tokens agreeing in
+    ``TOKEN_AGREEMENT`` of them; train_lm's relaunch resumes at step 50.
+    Returns each path's launches."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.core import fz
+    from repro_torch.data import make_field
+    from repro_torch.examples import compress_field, quickstart, serve_compressed_kv, train_lm
+
+    launches = {path: dict.fromkeys(kernels.WRAPPERS, 0) for path in EXAMPLE_PATHS}
+    drive, _ = launch_recorder(launches)
+    walls = {}
+    t_phase = time.time()
+
+    def run(path, main, argv, interrupted=()):
+        """``main(argv)``; an ``interrupted`` exception is returned, not raised."""
+        def call():
+            try:
+                return main(argv)
+            except interrupted as e:
+                return e
+        obs.reset()
+        obs.clear_events()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            got = drive(path, call)
+        torch.cuda.synchronize()
+        walls[path] = time.perf_counter() - t
+        text = out.getvalue()
+        for line in text.splitlines()[-4:]:
+            say("18a", f"  {path}: {line}")
+        must = EXAMPLE_PATHS[path]
+        if not must and any(launches[path].values()):
+            raise AssertionError(f"{path} (the plain route) launched {launches[path]}")
+        missing = [k for k in must if launches[path][k] <= 0]
+        if missing:
+            raise AssertionError(f"{path} did not launch {missing}: {launches[path]}")
+        say("18a", f"{card} | {path}: {walls[path]:.2f} s wall; launches "
+                   f"{ {k: v for k, v in launches[path].items() if v} }")
+        return got, text
+
+    run("quickstart", quickstart.main, ["--device", str(dev)])
+    for path, kind, shape in EXAMPLE_FIELDS:
+        rows, _ = run(path, compress_field.main, ["--kind", kind, "--shape", *map(str, shape),
+                                                  "--device", str(dev)])
+        f = torch.from_numpy(make_field(kind, shape, seed=0)).to(dev)
+        for eb, row in zip(compress_field.EBS, rows):
+            _, c = fz.roundtrip(f, fz.FZConfig(eb=eb, use_kernels=False), device=dev)
+            plain_cr = f"{c.compression_ratio():.2f}"
+            if row.split(",")[1] != plain_cr:
+                raise AssertionError(f"{path} eb={eb}: CR column {row.split(',')[1]} differs "
+                                     f"from the plain route's {plain_cr}")
+        say("18a", f"{path}: the CR column equals the plain route's at every bound "
+                   f"({[r.split(',')[1] for r in rows]})")
+        del f
+    served = {}
+    for path, argv in (("serve_compressed_kv --kernels", ["--kernels"]),
+                       ("serve_compressed_kv", [])):
+        served[path], _ = run(path, serve_compressed_kv.main, argv + ["--device", str(dev)])
+    k, p = served["serve_compressed_kv --kernels"], served["serve_compressed_kv"]
+    for name in SCHED_FIELDS:
+        if getattr(k["stats"], name) != getattr(p["stats"], name):
+            raise AssertionError(f"serve_compressed_kv: TraceStats.{name} differs across "
+                                 f"routes: {getattr(k['stats'], name)} vs "
+                                 f"{getattr(p['stats'], name)}")
+    agree = float(np.mean([np.mean(k["outputs"][i] == p["outputs"][i]) for i in p["outputs"]]))
+    say("18a", f"serve_compressed_kv: identical scheduling counts across routes; tokens of "
+               f"the kernel route equal the plain route's in {agree:.4f} (bar "
+               f"{TOKEN_AGREEMENT}); oracle agreement kernel {k['agreement']:.4f}, plain "
+               f"{p['agreement']:.4f}")
+    if agree < TOKEN_AGREEMENT:
+        raise AssertionError(f"serve_compressed_kv: routes agree in {agree} of tokens")
+    shutil.rmtree(TRAIN_LM_DIR, ignore_errors=True)
+    first, relaunch = TRAIN_LM_STEPS
+    args = [*TRAIN_LM_ARGS, "--ckpt-dir", str(TRAIN_LM_DIR), "--device", str(dev)]
+
+    class Killed(Exception):
+        pass
+
+    class KilledAt(train_lm.Trainer):
+        """The example's trainer, its data loader interrupted at TRAIN_LM_KILL."""
+        def _batch(self, step):
+            if step == TRAIN_LM_KILL:
+                raise Killed(step)
+            return super()._batch(step)
+
+    real = train_lm.Trainer
+    train_lm.Trainer = KilledAt
+    try:
+        got, _ = run("train_lm", train_lm.main, ["--steps", str(first), *args],
+                     interrupted=Killed)
+    finally:
+        train_lm.Trainer = real
+    if not isinstance(got, Killed):
+        raise AssertionError("train_lm was not interrupted")
+    hist, text = run("train_lm resumed", train_lm.main, ["--steps", str(relaunch), *args])
+    if "resumed from checkpoint at step 50" not in text or hist[0]["step"] != 50:
+        raise AssertionError(f"train_lm did not resume at step 50: {text[:300]}")
+    if not all(np.isfinite(m["loss"]) for m in hist):
+        raise AssertionError("train_lm: a loss is not finite")
+    say("18a", f"{card} | train_lm: killed at step {TRAIN_LM_KILL} of {first}, relaunched: "
+               f"resumed at step 50, to {relaunch}: loss {hist[0]['loss']:.4f} -> "
+               f"{hist[-1]['loss']:.4f}, "
+               f"{np.median([m['seconds'] for m in hist[2:]]) * 1e3:.1f} ms a step (median)")
+    shutil.rmtree(TRAIN_LM_DIR, ignore_errors=True)     # 0.3 GB of checkpoints
+    say("18a", f"{card} | example wall times (s): "
+               f"{ {path: round(w, 2) for path, w in walls.items()} }; phase "
+               f"{time.time() - t_phase:.1f} s")
+    return launches
+
+
+def sync_events(fn, events: list):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``, appending to
+    ``events`` one entry a synchronizing call: the ``(file, qualname, line)``
+    frames of ``repro_torch`` on the stack at that call, innermost first."""
+    import inspect
+    import warnings
+    import torch
+    src = ROOT / "src"
+    root = str(src / "repro_torch")
+    active = [False]              # only fn's syncs, not the mode switches around it
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if not active[0] or "synchronizing" not in str(message):
+            return
+        frames, every, f = [], [], inspect.currentframe().f_back
+        while f is not None:
+            path = f.f_code.co_filename
+            if path.startswith(root):
+                frames.append((os.path.relpath(path, src), f.f_code.co_qualname, f.f_lineno))
+            every.append((path, f.f_code.co_qualname, f.f_lineno))
+            f = f.f_back
+        # a sync outside the port (no repro_torch frame) keeps its whole stack
+        events.append(frames or [("(outside repro_torch)", repr(every[:6]), 0)])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        active[0] = True
+        try:
+            return fn()
+        finally:
+            active[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def static_sync_sites() -> set[tuple[str, str]]:
+    """(file, qualname) of every function that the static ``host-sync`` pass
+    finds a sync in, or that the baseline lists one in."""
+    from repro_torch.analysis import jitlint
+    return jitlint.sync_sites()
+
+
+def sync_phase(card, dev) -> dict:
+    """Phase 18c: the host-sync lint's runtime twin. Yi-6B serves phase 8's trace
+    and pool on the kernel route, and fused compress / decompress run at
+    ``SYNC_FIELD`` (strict and paper mode), under the sync debug mode. Gate: the
+    innermost ``repro_torch`` frame of every synchronizing call is a function that
+    the static ``host-sync`` findings or the baseline list. Prints the syncs a
+    decode step. Returns the counts."""
+    import collections
+    import statistics
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import fz
+    from repro_torch.data import make_field
+    from repro_torch.models import zoo
+    from repro_torch.serve import Engine, PoolConfig
+    from repro_torch.serve.kvpool import ContinuousBatcher, tracegen
+
+    t_phase = time.time()
+    model = zoo.build(configs.get("yi-6b"))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    eng = Engine(model, params, pool=PoolConfig(**SERVE_POOL), device=dev)
+    batcher = ContinuousBatcher(eng, eng.make_pool(), max_batch=SERVE_LANES)
+    events, steps = [], []
+    step = batcher.step
+
+    def counted(i, outputs):
+        n0, d0 = len(events), batcher.stats.decode_steps
+        out = step(i, outputs)
+        steps.append((batcher.stats.decode_steps > d0, len(events) - n0))
+        return out
+    batcher.step = counted
+    sync_events(lambda: batcher.run(tracegen.generate(tracegen.TraceGenConfig(**SERVE_TRACE))),
+                events)
+    torch.cuda.synchronize()
+    serve_events = list(events)
+    per_decode = [n for decoded, n in steps if decoded]
+    del eng, batcher, params, model
+    fresh()
+
+    x = torch.from_numpy(make_field("smooth", SYNC_FIELD, seed=0)).to(dev)
+    calls = {}
+    for mode, cfg in (("strict", fz.FZConfig(eb=1e-3)),
+                      ("paper", fz.FZConfig(eb=1e-3, exact_outliers=False))):
+        c = fz.compress(x, cfg, device=dev)           # warm: tuner, kernels built
+        fz.decompress(c, cfg, device=dev)
+        torch.cuda.synchronize()
+        for op, fn in (("compress", lambda: fz.compress(x, cfg, device=dev)),
+                       ("decompress", lambda: fz.decompress(c, cfg, device=dev))):
+            n0 = len(events)
+            sync_events(fn, events)
+            calls[f"{op} {mode}"] = len(events) - n0
+    torch.cuda.synchronize()
+    del x
+
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "sync_events.json").write_text(json.dumps(
+        {"serve": serve_events, "fz": events[len(serve_events):], "calls": calls,
+         "per_step": steps}, indent=0) + "\n")
+    inner = collections.Counter(f"{e[0][0]}:{e[0][1]}" if e else "(no repro_torch frame)"
+                                for e in events)
+    say("18c", f"{card} | Yi-6B serving trace on the kernel route: {len(serve_events)} "
+               f"synchronizing calls in {len(steps)} scheduler steps; a decode step "
+               f"{statistics.median(per_decode)} (median), {min(per_decode)}-{max(per_decode)} "
+               f"over {len(per_decode)} decode steps; fz calls at {SYNC_FIELD}: {calls}")
+    say("18c", f"synchronizing calls by innermost repro_torch function: "
+               f"{dict(inner.most_common())}")
+    sites = static_sync_sites()
+    unmapped = collections.Counter(f"{e[0][0]}:{e[0][1]} (line {e[0][2]}; from "
+                                   f"{[f'{f[1]}:{f[2]}' for f in e[1:4]]})" if e else
+                                   "(no repro_torch frame)"
+                                   for e in events if not e or (e[0][0], e[0][1]) not in sites)
+    if unmapped:
+        raise AssertionError(f"synchronizing calls the static host-sync pass does not list: "
+                             f"{dict(unmapped)}")
+    say("18c", f"every synchronizing call maps to a host-sync finding or baseline entry "
+               f"({len(sites)} functions listed); phase {time.time() - t_phase:.1f} s")
+    return {"per_decode_step": per_decode, "calls": calls, "by_function": dict(inner)}
+
+
+def analysis_phase(card) -> None:
+    """Phase 18b: ``python -m repro_torch.analysis --check`` with all four passes
+    on the checkout's tree, the resource pass with the card's ptxas figures and
+    C-side shared bytes."""
+    import contextlib
+    import io
+    from repro_torch.analysis import __main__ as analysis_cli
+    from repro_torch.analysis import report, resources
+
+    t0 = time.time()
+    if resources.ptxas_info() is None:
+        raise AssertionError("no ptxas log beside the built kernel libraries")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_cli.main(["--check"])
+    for line in out.getvalue().splitlines()[-3:]:
+        say("18b", f"  {line}")
+    if rc != 0:
+        raise AssertionError(f"python -m repro_torch.analysis --check failed: {out.getvalue()}")
+    rep = report.run_all()
+    unmeasured = [r["name"] for r in rep.rows if r["registers"] == resources.NOT_MEASURED
+                  or r["dynamic_smem"] == resources.NOT_MEASURED]
+    if unmeasured:
+        raise AssertionError(f"the resource pass measured nothing for {unmeasured}")
+    say("18b", f"{card} | analysis --check clean with passes {report.PASSES}: "
+               f"{len(rep.findings)} finding(s), all baselined; registers and dynamic shared "
+               f"bytes measured for {len(rep.rows)} launch rows ({time.time() - t0:.1f} s)")
+
+
 def tune_phase(card, dev, serving, x) -> None:
     """Phase 13: the resource table and its gates, the tuner on the card's
     points and its gates, and "auto" / the engine on the tuned cache (phase
@@ -3415,6 +3736,10 @@ def main() -> int:
     train = train_phase(card, dev)
     zoo_launches = zoo_phase(card, dev)
     recurrent_launches = recurrent_phase(card, dev)
+    fresh()
+    example_launches = example_phase(card, dev)
+    analysis_phase(card)
+    syncs = sync_phase(card, dev)
     pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
     for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10
         row["max_abs_err"] = max_err[row["name"]]
@@ -3433,6 +3758,11 @@ def main() -> int:
         # phase 17's main paths: rwkv6, zamba2 and whisper parked, rwkv6 and zamba2 trained
         row["recurrent_launches"] = {path: counts[row["name"]]
                                      for path, counts in recurrent_launches.items()}
+        # phase 18a: each example's own path
+        row["example_launches"] = {path: counts[row["name"]]
+                                   for path, counts in example_launches.items()}
+    say(18, f"{card} | host syncs a Yi-6B decode step (phase 18c): median "
+            f"{statistics.median(syncs['per_decode_step'])}")
     say(10, f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,8 @@
-"""CLI: ``python -m repro_torch.analysis [--check] [--json PATH] [--update-baseline]``.
+"""CLI: ``python -m repro_torch.analysis [--check] [--json PATH] [--passes ...]
+[--update-baseline]``.
 
-Runs the resource pass over the shipped space (:mod:`.space`). Exit status: 0
+Runs the four passes (``resources`` and ``carry`` over the shipped space of
+:mod:`.space`, ``jitlint`` and ``style`` over ``src/repro_torch``). Exit status: 0
 when the tree is clean modulo the committed baseline (``analysis/baseline.json``);
 1 under ``--check`` when any new finding appears. ``--update-baseline``
 rewrites the allowlist from the current findings -- a deliberate, reviewed
@@ -17,23 +19,32 @@ import sys
 
 from . import report as _report
 
+PASSES = _report.PASSES
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="Static kernel-resource analyzer of the CUDA launches")
+        description="Static kernel-resource, carry and host-sync analyzer")
     ap.add_argument("--check", action="store_true",
                     help="exit 1 on findings not in the committed baseline")
     ap.add_argument("--json", metavar="PATH",
                     help="write the full report as JSON ('-' for stdout)")
+    ap.add_argument("--passes", default=",".join(PASSES),
+                    help=f"comma-separated subset of {PASSES}")
     ap.add_argument("--baseline", metavar="PATH",
                     help="alternate baseline file (default: committed)")
     ap.add_argument("--update-baseline", action="store_true",
                     help="rewrite the baseline from current findings")
     args = ap.parse_args(argv)
+
+    passes = tuple(p.strip() for p in args.passes.split(",") if p.strip())
+    unknown = set(passes) - set(PASSES)
+    if unknown:
+        ap.error(f"unknown pass(es) {sorted(unknown)}; choose from {PASSES}")
     bp = pathlib.Path(args.baseline) if args.baseline else None
 
-    rep = _report.run_all(baseline_path=bp)
+    rep = _report.run_all(passes, baseline_path=bp)
 
     if args.update_baseline:
         reasons = _report.load_baseline(bp)

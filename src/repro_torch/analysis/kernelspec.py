@@ -36,6 +36,10 @@ class KernelSpec:
     args)``: the ``extern "C"`` function of ``source`` that returns the dynamic
     shared bytes this launch sets, or None where the launch sets none.
     ``dynamic_smem`` is None where the query could not be asked (no card).
+    ``carry`` is ``"lookback"`` for a launch whose CTAs read state other CTAs of
+    the same launch publish (the decoupled look-back of ``csrc/fz_common.cuh``),
+    None otherwise: the counterpart of the reference's ``dimension_semantics``,
+    held to the kernel's body by :mod:`.carry`.
     """
     name: str                          # launch-site name (the registry key)
     module: str                        # the .cu source under csrc/
@@ -46,6 +50,7 @@ class KernelSpec:
     min_ctas: int | None = None        # __launch_bounds__ minimum CTAs an SM
     point: str = ""
     c_query: tuple[str, str, tuple] | None = None
+    carry: str | None = None           # "lookback": CTAs read each other's published state
 
 
 # --------------------------------------------------------------------------

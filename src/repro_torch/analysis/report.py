@@ -12,9 +12,9 @@ The baseline is the committed allowlist: every accepted finding is explicit
 (key + reason), anything new fails ``--check``. Stale baseline entries
 (accepted findings the tree no longer produces) are reported too, so the
 allowlist can only shrink deliberately. The port has its own baseline
-(``repro_torch/analysis/baseline.json``); the reference's ``carry`` and
-``jitlint`` passes are not ported (ROADMAP), so the resource pass is the only
-one.
+(``repro_torch/analysis/baseline.json``) and the reference's four passes:
+``resources`` (Hopper's limits), ``carry`` (the look-back and ticket contract of
+cross-CTA carries), ``jitlint`` (host syncs on the hot paths) and ``style``.
 """
 from __future__ import annotations
 
@@ -23,13 +23,14 @@ import json
 import pathlib
 
 BASELINE_PATH = pathlib.Path(__file__).with_name("baseline.json")
+PASSES = ("resources", "carry", "jitlint", "style")
 
 
 @dataclasses.dataclass(frozen=True)
 class Finding:
-    pass_name: str          # resources
-    rule: str               # e.g. smem-overflow, occupancy-below-bounds
-    obj: str                # the launch site the finding is on
+    pass_name: str          # resources | carry | jitlint | style
+    rule: str               # e.g. smem-overflow, carry-without-ticket, host-sync
+    obj: str                # launch site / file:qualname:kind the finding is on
     message: str            # human sentence, may quote the point
     severity: str = "error"  # error | warn
     location: str = ""      # file:line when known
@@ -112,18 +113,36 @@ class Report:
         return "\n".join(lines)
 
 
-def run_all(baseline_path: pathlib.Path | None = None, ptxas=None) -> Report:
-    """Run the resource pass over the shipped space and diff against the
-    baseline. ``ptxas``: the parsed ptxas figures (:func:`resources.ptxas_info`)
-    or None, which reads the logs of the built libraries if there are any."""
-    from . import resources, space
-    specs = space.build_specs()
-    if ptxas is None:
-        ptxas = resources.ptxas_info()
-    findings = merge_findings(resources.analyze(specs, ptxas))
+def run_all(passes: tuple[str, ...] = PASSES, baseline_path: pathlib.Path | None = None,
+            ptxas=None) -> Report:
+    """Run the selected passes and diff against the committed baseline.
+    ``ptxas``: the parsed ptxas figures (:func:`resources.ptxas_info`) or None,
+    which reads the logs of the built libraries if there are any.
+
+    Imports the passes lazily so the kernel wrappers (which import
+    ``analysis.kernelspec``) never pull them in transitively. A baseline entry
+    of a pass that did not run is not stale.
+    """
+    findings: list[Finding] = []
+    rows: list[dict] = []
+    if "resources" in passes or "carry" in passes:
+        from . import space
+        specs = space.build_specs()
+        if "resources" in passes:
+            from . import resources
+            if ptxas is None:
+                ptxas = resources.ptxas_info()
+            findings += resources.analyze(specs, ptxas)
+            rows = resources.table(specs, ptxas)
+        if "carry" in passes:
+            from . import carry
+            findings += carry.analyze(specs)
+    if "jitlint" in passes or "style" in passes:
+        from . import jitlint
+        findings += jitlint.analyze(style="style" in passes, discipline="jitlint" in passes)
+    findings = merge_findings(findings)
     baseline = load_baseline(baseline_path)
     produced = {f.key for f in findings}
     new = [f for f in findings if f.key not in baseline]
-    stale = sorted(k for k in baseline if k not in produced)
-    return Report(findings=findings, new=new, stale=stale,
-                  rows=resources.table(specs, ptxas))
+    stale = sorted(k for k in baseline if k not in produced and k.split(":", 1)[0] in passes)
+    return Report(findings=findings, new=new, stale=stale, rows=rows)

@@ -21,6 +21,7 @@ from .flash_decode import flash_decode_partials
 from .fused_compress import fused_compress, fused_shuffle_encode
 from .fused_decode import fused_decompress
 from .lorenzo_quant import lorenzo_quant
+from . import flash_decode, fused_decode, ops, ref  # noqa: F401  (the reference's submodules)
 
 WRAPPERS = {
     "lorenzo_quant": lorenzo_quant,

@@ -55,7 +55,8 @@ def fused_compress_spec(shape, dtype: str = "float32", point: str = "") -> Kerne
     return KernelSpec(
         name="fused_compress", module=_SOURCE, symbol="encode_tiles",
         grid=(-(-n // TILE),), threads=THREADS, dynamic_smem=build.query(*q),
-        min_ctas=WINDOW_MIN_CTAS, point=point or f"{tuple(shape)} {dtype}", c_query=q)
+        min_ctas=WINDOW_MIN_CTAS, point=point or f"{tuple(shape)} {dtype}", c_query=q,
+        carry="lookback")
 
 
 @register_spec("fused_shuffle_encode")
@@ -64,7 +65,7 @@ def fused_shuffle_encode_spec(n_tiles: int, point: str = "") -> KernelSpec:
     return KernelSpec(
         name="fused_shuffle_encode", module=_SOURCE, symbol="shuffle_encode_tiles",
         grid=(int(n_tiles),), threads=K5_THREADS, min_ctas=K5_MIN_CTAS,
-        point=point or f"{n_tiles} tiles")
+        point=point or f"{n_tiles} tiles", carry="lookback")
 
 
 def _code_mode(code_mode: str) -> int:

@@ -59,7 +59,8 @@ def decode_scan_rows_spec(n_tiles: int, point: str = "") -> KernelSpec:
     """The fused decode + last-axis prefix: one CTA a tile, static shared memory."""
     return KernelSpec(name="fused_decompress.decode_scan_rows", module=_SOURCE,
                       symbol="decode_scan_rows", grid=(int(n_tiles),), threads=THREADS,
-                      min_ctas=ROWS_MIN_CTAS, point=point or f"{n_tiles} tiles")
+                      min_ctas=ROWS_MIN_CTAS, point=point or f"{n_tiles} tiles",
+                      carry="lookback")
 
 
 @register_spec("fused_decompress.scan_columns")

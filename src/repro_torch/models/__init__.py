@@ -1,2 +1,4 @@
 """Model substrate of the port: parameter declarations, layer math, attention, the
-dense decoder and the model API (``zoo.build``)."""
+decoder families and the model API (``zoo.build``)."""
+from . import attention, mamba2, moe, nn, rwkv6, transformer, whisper, zamba2, zoo  # noqa: F401
+from .zoo import Model, build  # noqa: F401

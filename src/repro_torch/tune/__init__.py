@@ -28,8 +28,8 @@ compressor can import :mod:`dispatch` without a cycle.
 """
 from .cache import SCHEMA_VERSION, TuneCache, cache_key, shape_bucket  # noqa: F401
 from .dispatch import (active_cache, arch, backend, configure,  # noqa: F401
-                       decode_attention_impl, invalidate_memo, reset,
-                       resolve_fz)
+                       decode_attention_impl, fz_fallback_mode, invalidate_memo,
+                       reset, resolve_fz)
 from .registry import Candidate, OpSpec  # noqa: F401
 from .tuner import TuneError, ensure_tuned, tune_op  # noqa: F401
 

@@ -140,6 +140,15 @@ def _kernel_fallback(op: str) -> str:
     return "kernel"
 
 
+def fz_fallback_mode(b: str | None = None) -> str:
+    """First *kernel* choice of the static ordering on backend ``b`` (``"cuda"``
+    or ``"cpu"``; default ``backend()``): ``"fused"``, since the port's order is
+    fused-first on both backends (the reference's is staged-first off the TPU)."""
+    if b not in (None, "cuda", "cpu"):
+        raise ValueError(f"unknown backend {b!r}: use 'cuda' or 'cpu'")
+    return next(impl for impl in FZ_FALLBACK if impl not in PLAIN_IMPLS)
+
+
 def resolve_fz(direction: str, n: int, dtype: str, device="cuda") -> str:
     """Winning impl for ``fz.compress``/``fz.decompress`` at this workload on
     ``device``: ``"reference" | "staged" | "fused"``. ``direction`` is

@@ -271,7 +271,9 @@ def test_space_covers_the_shipped_shapes():
 def test_cpu_tree_clean_modulo_baseline():
     rep = report.run_all(ptxas=None)
     assert rep.clean, rep.render_text()
-    assert all(f.severity == "warn" for f in rep.findings)
+    # the resource pass's findings are warnings; the host-sync pass's baselined
+    # syncs (tests/test_torch_analysis_passes.py) are errors by rule
+    assert all(f.severity == "warn" for f in rep.findings if f.pass_name == "resources")
     assert rep.rows and all(r["registers"] == "not measured" for r in rep.rows)
     assert all(r["dynamic_smem"] == "not measured" for r in rep.rows
                if r["name"] not in ("bitshuffle_flag", "bitunshuffle_tiles",
