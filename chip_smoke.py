@@ -293,6 +293,36 @@ Phases (each prints its own lines):
      frame of every synchronizing call is a function the static ``host-sync``
      findings or the baseline list. The syncs a decode step are printed.
 
+  19. the dry-run and its calibration (``launch/dryrun.py``, ``hlo_cost.py``,
+     ``hlo_analysis.py``; ``train.build_prefill_step`` / ``build_decode_step``),
+     after phase 18. (a) Six cells on a fake process group of 256 (``single``,
+     (16, 16)) or 512 (``multi``, (2, 16, 16)) ranks of a fake ``cuda`` mesh,
+     every parameter, state, input and cache a DTensor of ``meta`` blocks:
+     yi-6b train_4k single, yi-6b decode_32k multi, dbrx-132b prefill_32k
+     single, llama4-scout-17b-a16e train_4k multi with ``--compressed-grads``
+     (the bucketed pod hop, K4/K6 by their fake implementations), zamba2-2.7b
+     long_500k single and rwkv6-3b train_4k single with ``--opt zero3``. Each
+     is counted at depth 1 and 2 and extrapolated to its full depth. Printed:
+     devices, parameters, per-device FLOPs, bytes, collective and cross-pod
+     bytes, the peak against the card's 80 GB, the bottleneck, the useful
+     FLOPs ratio, the elapsed time and the three source lines whose products
+     count the most FLOPs (``flops_by_site``); each cell's JSON goes to
+     ``chiprun_out/dryrun/``. Gates: every cell runs to its end,
+     ``useful_flops_ratio <= 1.02``, and the compressed cell's cross-pod bytes
+     of every bucket equal ``expected_cross_pod_bytes`` at both depths. (b)
+     Calibration with real tensors on one rank: Yi-6B at its published width
+     cut to 2 layers runs ``build_prefill_step`` at prefill_32k's sequence and
+     batch 1 on a (1, 1) mesh, ``build_decode_step`` at decode_32k's cache
+     length and batch 4, and phase 15's compressed train step on the (1, 1, 1)
+     pod mesh (K4/K6 once a leaf past ``min_leaf_size``). Each runs once under
+     the cost model's trace and once under ``torch.profiler(with_flops=True)``:
+     the cost model's FLOPs equal the profiler's (its ``mm`` / ``addmm`` /
+     ``bmm`` / ``baddbmm`` events) within 2%; then its device
+     time (CUDA events) is at or above the roofline's
+     ``step_time_lower_bound_s``, and the achieved fraction of the bound is
+     printed. The ``kernels`` JSON gives each kernel's launches on these
+     paths as ``calibration_launches``.
+
 bfloat16 GEMMs are set to reduce in float32
 (``allow_bf16_reduced_precision_reduction = False``), as the reference's
 ``dense`` accumulates; the port's modules change no global state.
@@ -479,6 +509,20 @@ TRAIN_LM_STEPS, TRAIN_LM_KILL = (60, 70), 55
 TRAIN_LM_ARGS: tuple[str, ...] = ()     # the example's own batch 8, sequence 256
 TRAIN_LM_DIR = ROOT / "chiprun_out" / "train_lm"      # listed in .gitignore
 SYNC_FIELD = (100, 500, 500)       # the compressor's calls under the sync debug mode
+# phase 19: the dry-run's cells (arch, shape, mesh, compressed grads, opt) on the
+# fake 256/512-rank meshes, and the calibration on real tensors at Yi-6B's width
+DRYRUN_CELLS = (("yi-6b", "train_4k", "single", False, "none"),
+                ("yi-6b", "decode_32k", "multi", False, "none"),
+                ("dbrx-132b", "prefill_32k", "single", False, "none"),
+                ("llama4-scout-17b-a16e", "train_4k", "multi", True, "none"),
+                ("zamba2-2.7b", "long_500k", "single", False, "none"),
+                ("rwkv6-3b", "train_4k", "single", False, "zero3"))
+DRYRUN_RATIO_LIMIT = 1.02        # useful FLOPs over counted FLOPs x devices
+CALIB_LAYERS = 2
+CALIB_PREFILL = ("prefill_calib", 32_768, 1, "prefill")      # prefill_32k's sequence
+CALIB_DECODE = ("decode_calib", 32_768, 4, "decode")         # decode_32k's cache length
+CALIB_FLOP_TOL = 0.02            # cost model FLOPs against the profiler's
+CALIB_PRODUCTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 
 def say(phase, msg):
@@ -3184,6 +3228,182 @@ def tune_phase(card, dev, serving, x) -> None:
     say(13, f"tune phase done in {time.time() - t_phase:.1f} s")
 
 
+def dryrun_phase(card) -> list[dict]:
+    """Phase 19a: the dry-run's cells on fake meshes (see the module docstring).
+    Returns the cells' JSON. Raises on any failed gate."""
+    from repro_torch.launch import dryrun
+
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    results = []
+    try:
+        for arch, shape, mesh, compressed, opt in DRYRUN_CELLS:
+            r = dryrun.run_cell(arch, shape, mesh, compressed_grads=compressed, opt=opt)
+            tag = f"{arch}_{shape}_{mesh}" + ("_compressed" if compressed else "") + \
+                (f"_{opt}" if opt != "none" else "")
+            (out_dir / f"{tag}.json").write_text(json.dumps(r, indent=1))
+            cm, rf, mem = r["cost_model"], r["roofline"], r["full"]["memory"]
+            say(19, f"{card} | dry-run {arch} {shape} {mesh}"
+                    f"{' --compressed-grads' if compressed else ''}"
+                    f"{' --opt ' + opt if opt != 'none' else ''}: {r['devices']} devices, "
+                    f"{r['param_count']:,} parameters; per device {cm['flops']:.4e} FLOPs, "
+                    f"{cm['bytes']:.4e} bytes, {cm['collective_bytes']:.4e} collective "
+                    f"bytes, {cm['cross_pod_bytes']:.4e} cross-pod bytes; peak "
+                    f"{mem['peak_device_bytes'] / 1e9:.2f} GB of 80 GB "
+                    f"({'fits' if r['fits'] else 'does not fit'}); bottleneck "
+                    f"{rf['bottleneck']}, bound {rf['step_time_lower_bound_s']:.4f} s, "
+                    f"useful_flops_ratio {rf['useful_flops_ratio']:.4f}; counted at depths "
+                    f"{r['extrapolated_from']['depths']} -> {r['extrapolated_from']['full_depth']}"
+                    f" {r['extrapolated_from']['unit']}; {r['elapsed_s']:.1f} s")
+            top = sorted(cm["flops_by_site"].items(), key=lambda kv: -kv[1])[:3]
+            say(19, f"dry-run {tag}: largest products "
+                    + "; ".join(f"{k} {v / cm['flops']:.1%}" for k, v in top))
+            if rf["useful_flops_ratio"] > DRYRUN_RATIO_LIMIT:
+                raise AssertionError(f"dry-run {tag}: useful_flops_ratio "
+                                     f"{rf['useful_flops_ratio']} > {DRYRUN_RATIO_LIMIT}: "
+                                     "the cost model counts fewer FLOPs than the model does")
+            if compressed:
+                for check in r["bucket_check"]:
+                    if not check or not check["ok"]:
+                        raise AssertionError(f"dry-run {tag}: per-bucket cross-pod bytes "
+                                             f"differ from expected_cross_pod_bytes: {check}")
+                say(19, f"{card} | dry-run {tag}: cross-pod bytes of each of "
+                        f"{r['bucket_check'][-1]['buckets']} buckets equal "
+                        "expected_cross_pod_bytes at both depths")
+            results.append(r)
+    finally:
+        dryrun.end_fake_group()
+    return results
+
+
+def calibration_phase(card, dev) -> dict:
+    """Phase 19b: the cost model against the profiler on real tensors at Yi-6B's
+    width (see the module docstring). Returns each path's launches. Raises on
+    any failed gate."""
+    import dataclasses
+    import gc
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+    from repro_torch import configs, kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.compressed_allreduce import GradCompressionConfig
+    from repro_torch.launch import hlo_analysis as ha
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import zoo
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, build_decode_step, build_prefill_step
+    from repro_torch.train import build_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = configs.get("yi-6b")
+    cfg = dataclasses.replace(full, n_layers=CALIB_LAYERS)
+    model = zoo.build(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, device=dev)
+    launches = {}
+    fresh_group = not dist.is_initialized()
+
+    def measure(what, shape, fn, args):
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        _, trace = hlo_cost.record(fn, *args, memory=False)      # also the warm-up
+        torch.cuda.synchronize()
+        launches[what] = kernels.launch_counts()
+        t_trace = time.time() - t0
+        # the profiler's run apart (under the trace's dispatch mode it sees each
+        # product twice), with checkpoints recomputing whole as in the trace;
+        # its FLOPs are the host-side operator events'
+        with set_checkpoint_early_stop(False), profile(activities=[ProfilerActivity.CPU],
+                                                       with_flops=True) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        t_prof = time.time() - t0 - t_trace
+        # the profiler's formulas for the products the cost model counts (it
+        # also gives aten::mul and aten::add one FLOP an element), read off its
+        # raw events: building its Python event list takes over a minute here
+        prof_flops = float(sum(e.flops() for e in prof.profiler.kineto_results.events()
+                               if e.name() in CALIB_PRODUCTS))
+        cost = hlo_cost.analyze(trace)
+        terms = ha.roofline_terms(cost["flops"], cost["bytes"], cost["collective_bytes"])
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop)
+        bound_ms = terms["step_time_lower_bound_s"] * 1e3
+        rel = abs(cost["flops"] - prof_flops) / max(prof_flops, 1.0)
+        say(19, f"{card} | calibration {what} ({shape}): cost model {cost['flops']:.6e} "
+                f"FLOPs, profiler {prof_flops:.6e} ({100 * rel:.3f}% apart); "
+                f"{cost['bytes']:.4e} dot bytes; device time {ms:.3f} ms, roofline bound "
+                f"{bound_ms:.3f} ms by {terms['bottleneck']} (H100 SXM datasheet peaks), "
+                f"achieved {100 * bound_ms / ms:.1f}% of the bound; launches "
+                f"{ {k: v for k, v in launches[what].items() if v} }; host s: traced run "
+                f"{t_trace:.1f}, profiled run {t_prof:.1f}, timed run "
+                f"{time.time() - t0 - t_trace - t_prof:.1f}")
+        if rel > CALIB_FLOP_TOL:
+            raise AssertionError(f"calibration {what}: the cost model's FLOPs "
+                                 f"{cost['flops']:.6e} are {100 * rel:.2f}% from the "
+                                 f"profiler's {prof_flops:.6e}")
+        if ms < bound_ms:
+            raise AssertionError(f"calibration {what}: {ms:.3f} ms is under the roofline "
+                                 f"bound {bound_ms:.3f} ms: the count is wrong")
+
+    try:
+        mesh2 = lmesh.make_mesh((1, 1), ("data", "model"), device=dev)
+        say(19, f"{card} | calibration: Yi-6B at its published width, depth "
+                f"{full.n_layers} -> {cfg.n_layers} layers ({model.param_count():,} "
+                f"parameters), random bfloat16 weights from torch.Generator seed 0, mesh "
+                f"{lmesh.mesh_shape(mesh2)}")
+        with torch.no_grad():
+            shape = ShapeConfig(*CALIB_PREFILL)
+            step, info = build_prefill_step(model, shape, mesh2)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len),
+                                             generator=gen, device=dev, dtype=torch.int32)}
+            measure("prefill", shape, step, (params, batch))
+            del batch
+            shape = ShapeConfig(*CALIB_DECODE)
+            step, info = build_decode_step(model, shape, mesh2)
+            cache = model.make_cache(shape.global_batch, shape.seq_len, device=dev)
+            cache["length"].fill_(shape.seq_len)
+            inputs = {"token": torch.randint(0, cfg.vocab, (shape.global_batch,),
+                                             generator=gen, device=dev, dtype=torch.int32)}
+
+            def decode(p, c, i):
+                out = step(p, c, i)
+                c["length"].fill_(shape.seq_len)     # the same step each call
+                return out
+            measure("decode", shape, decode, (params, cache, inputs))
+            del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        shape = ShapeConfig(*TRAIN_SHAPE)
+        mesh3 = lmesh.make_mesh((1, 1, 1), ("pod", "data", "model"), device=dev)
+        tcfg = TrainConfig(grad_compress=GradCompressionConfig(enabled=True),
+                           total_steps=TRAIN_TOTAL, warmup_steps=1)
+        step, info = build_train_step(model, shape, mesh3, tcfg, device=dev)
+        opt = adamw_init(params)
+        err = info["make_err_state"](model.abstract_params())
+        tok = torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len + 1),
+                            generator=gen, device=dev, dtype=torch.int32)
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        measure("train", shape, step, (params, opt, err, 1, batch))
+        if not (launches["train"]["fused_compress"] and launches["train"]["fused_decompress"]):
+            raise AssertionError(f"calibration train: K4/K6 did not launch: {launches['train']}")
+        del opt, err, batch
+    finally:
+        if fresh_group and dist.is_initialized():
+            dist.destroy_process_group()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3740,6 +3960,11 @@ def main() -> int:
     example_launches = example_phase(card, dev)
     analysis_phase(card)
     syncs = sync_phase(card, dev)
+    t19 = time.time()
+    dryrun_phase(card)
+    say(19, f"dry-run cells took {time.time() - t19:.1f} s")
+    calib_launches = calibration_phase(card, dev)
+    say(19, f"phase 19 took {time.time() - t19:.1f} s")
     pages = {"fused_decompress": k6_page, "fused_compress": k4_page}
     for row in rows:                  # K4 and K6 carry both shapes; max_abs_err after phase 10
         row["max_abs_err"] = max_err[row["name"]]
@@ -3761,6 +3986,9 @@ def main() -> int:
         # phase 18a: each example's own path
         row["example_launches"] = {path: counts[row["name"]]
                                    for path, counts in example_launches.items()}
+        # phase 19b: the calibrated prefill, decode and compressed train steps
+        row["calibration_launches"] = {path: counts[row["name"]]
+                                       for path, counts in calib_launches.items()}
     say(18, f"{card} | host syncs a Yi-6B decode step (phase 18c): median "
             f"{statistics.median(syncs['per_decode_step'])}")
     say(10, f"total {time.time() - t_start:.1f} s")

@@ -181,7 +181,8 @@ HOT: tuple[tuple[str, str], ...] = (
     ("repro_torch/train/step.py", "_loss_and_grads"),
     ("repro_torch/train/step.py", "_pod_loss_mean"),
     ("repro_torch/train/step.py", "build_train_step.<locals>.finish"),
-    ("repro_torch/train/step.py", "build_train_step.<locals>.step"),
+    ("repro_torch/train/step.py", "build_train_step.<locals>.body"),
+    ("repro_torch/train/step.py", "build_train_step.<locals>.sharded_step"),
     ("repro_torch/train/step.py", "build_train_step.<locals>.pod_rows"),
     ("repro_torch/train/trainer.py", "Trainer.run"),
     ("repro_torch/train/trainer.py", "Trainer._batch"),

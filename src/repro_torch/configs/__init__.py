@@ -5,13 +5,12 @@ yi-6b, mistral-large-123b), the MoE decoders (dbrx-132b, llama4-scout-17b-a16e),
 the M-RoPE VLM backbone (qwen2-vl-72b), the recurrent RWKV-6 (rwkv6-3b), the
 Mamba2 hybrid (zamba2-2.7b) and the audio encoder-decoder (whisper-tiny).
 
-``SHAPES`` and ``ShapeConfig`` are the reference's assigned shapes. Its
-``cells_for`` (the dry-run's (arch, shape, mesh) cells) comes with the dry-run
-tooling (ROADMAP, queue 1 item 8).
+``SHAPES`` and ``ShapeConfig`` are the reference's assigned shapes, and
+``cells_for`` the dry-run's shapes for an arch (``launch.dryrun``).
 """
 from importlib import import_module
 
-from .base import SHAPES, ArchConfig, ShapeConfig  # noqa: F401
+from .base import SHAPES, ArchConfig, ShapeConfig, cells_for  # noqa: F401
 
 ARCH_IDS = (
     "qwen2-vl-72b", "glm4-9b", "internlm2-20b", "yi-6b", "mistral-large-123b",

@@ -94,3 +94,12 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+def cells_for(cfg: ArchConfig) -> list[str]:
+    """The dry-run's shapes for this arch: long_500k only where the arch is
+    sub-quadratic (``supports_long_context``), as in the reference."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.supports_long_context:
+        names.append("long_500k")
+    return names

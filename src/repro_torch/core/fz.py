@@ -281,7 +281,7 @@ def _eb_tensor(eb_abs, device: torch.device) -> torch.Tensor:
 
 def compress(data, cfg: FZConfig, *, device="cuda") -> FZCompressed:
     """Error-bounded lossy compression of a 1-3D float array."""
-    x, dtype_name = _as_input(data, resolve_device(device))
+    x, dtype_name = _as_input(data, resolve_device(device, allow_meta=True))
     cfg = _resolved(cfg, "compress", x.numel(), dtype_name, x.device)
     with _metered(obs.span("fz.compress", n=x.numel(), path=_path(cfg))) as s:
         out = _compress_core(x, resolve_eb(x, cfg), cfg, dtype_name)
@@ -329,7 +329,7 @@ def _compress_core(x: torch.Tensor, eb: torch.Tensor, cfg: FZConfig,
 
 def decompress(c: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor:
     """Inverse pipeline: decode -> bit-unshuffle -> inverse Lorenzo -> dequantize."""
-    c = c.to(resolve_device(device))
+    c = c.to(resolve_device(device, allow_meta=True))
     cfg = _resolved(cfg, "decompress", c.n, c.dtype_name, c.payload.device)
     with _metered(obs.span("fz.decompress", n=c.n, path=_path(cfg))) as s:
         out = _decompress(c, cfg)

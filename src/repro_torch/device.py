@@ -14,8 +14,11 @@ ARCH = "sm_90a"                      # Hopper target of every hand-written kerne
 BUILD_DIR = Path(__file__).resolve().parent / "_build"   # listed in .gitignore
 
 
-def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
-    """``None``/``"cuda"`` -> the current CUDA device; ``"cpu"`` -> the CPU.
+def resolve_device(device: str | torch.device | None = "cuda", *,
+                   allow_meta: bool = False) -> torch.device:
+    """``None``/``"cuda"`` -> the current CUDA device; ``"cpu"`` -> the CPU;
+    with ``allow_meta``, ``"meta"`` -> shapes and types only (the dry-run's
+    tensors: no storage, no computation).
 
     Raises ``RuntimeError`` when a CUDA device is asked for and none exists.
     """
@@ -26,6 +29,6 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
                 "repro_torch runs on a CUDA card by default and no card is "
                 "available; pass device='cpu' to run the plain PyTorch path")
         return dev
-    if dev.type == "cpu":
+    if dev.type == "cpu" or (allow_meta and dev.type == "meta"):
         return dev
     raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")

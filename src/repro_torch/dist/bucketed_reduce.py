@@ -44,7 +44,7 @@ from typing import Any
 import torch
 
 from .. import obs, pytree
-from . import compat
+from . import compat, sharding
 from .compressed_allreduce import (GradCompressionConfig, _compressible, _numel,
                                    container_field_bytes, exact_mean, gathered_fields,
                                    pod_group, pod_hop_body, reference_hop,
@@ -290,6 +290,7 @@ class BucketReducer:
 
     def _arrive(self, key: str, g: torch.Tensor) -> None:
         self._seen.add(key)
+        g = sharding.gather(g)              # a sharded step's gradient: the pod's whole leaf
         if self._n_micro == 1:
             self._final.setdefault(key, [None] * self._n_slots)[self._slot] = g
             return

@@ -127,7 +127,7 @@ def init_error_state(grads_abstract: Any, n_pods: int, cfg: GradCompressionConfi
     """
     if not cfg.enabled:
         return {}
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)     # meta: the dry-run's shapes
 
     def one(ab):
         if _compressible(tuple(ab.shape), ab.dtype, cfg):
@@ -200,8 +200,12 @@ def gather_bytes(t: torch.Tensor, group, tag: str | None) -> torch.Tensor:
     world = dist.get_world_size(group)
     src = t.contiguous().reshape(-1).view(torch.uint8)
     out = torch.empty(world * src.numel(), dtype=torch.uint8, device=src.device)
-    _gather_fn()(out, src, group=group)
-    if tag is not None:
+    if tag is None:
+        _gather_fn()(out, src, group=group)
+    else:
+        # the range names the gather for the dry-run's cost model (``cross_pod_by_tag``)
+        with torch.profiler.record_function(f"dist.gather.{tag}"):
+            _gather_fn()(out, src, group=group)
         obs.counter(_GATHERED, tag=tag).inc(out.numel())
     return out.view(world, -1).view(t.dtype).reshape((world,) + tuple(t.shape))
 

@@ -20,13 +20,26 @@ with ``axis_names`` and a ``shape`` dict works as in the reference; it returns
 a tuple whose entries equal the reference's ``PartitionSpec`` entries.
 :func:`tree_shardings` turns specs into DTensor placements on a ``DeviceMesh``.
 
+DTensor stands in for GSPMD: :func:`distribute_tree` lays a tree of full
+tensors out as DTensors (each rank keeps its slice; no collective, since every
+rank holds the same full values), :func:`gather_tree` is its inverse
+(``full_tensor()``), and :func:`sharded_ops` is the context a sharded step
+runs in: plain tensors mix with DTensors as replicated values
+(``implicit_replication``), and a view that DTensor cannot split evenly
+(``(B, S, 2 * 32)`` sharded 4 ways into ``(B, S, 2, 32)``) first replicates
+the tensor, where XLA would insert the same reshard.
+
 ``set_profile("zero3")`` turns the model axis into extra data parallelism, as
 in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import contextlib
 from typing import Any, Sequence
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import pytree
 from . import compat
@@ -152,3 +165,98 @@ def _logical_leaves(tree: Any) -> list:
     if isinstance(tree, (list, tuple)):
         return [s for v in tree for s in _logical_leaves(v)]
     raise TypeError(f"not a logical spec tree: {tree!r}")
+
+
+# ---------------------------------------------------------------------------
+# DTensor trees
+# ---------------------------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def local_slice(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of ``full`` under ``placements`` (a view, no copy)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(tuple(full.shape), mesh,
+                                                          list(placements))
+    return full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def distribute(full: torch.Tensor, sharding: NamedSharding):
+    """``full`` (the same values on every rank, or a meta tensor) as a DTensor laid
+    out by ``sharding``: each rank keeps its own block."""
+    from torch.distributed.tensor import DTensor
+    pl = sharding.placements
+    return DTensor.from_local(local_slice(full, sharding.mesh, pl).contiguous(),
+                              sharding.mesh, pl, run_check=False,
+                              shape=full.shape, stride=_contiguous_stride(full.shape))
+
+
+def _contiguous_stride(shape) -> tuple[int, ...]:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+def distribute_tree(tree: Any, logical_tree: Any, mesh) -> Any:
+    """Full tensors -> DTensors on ``mesh``, each laid out by its logical spec
+    (:func:`tree_shardings`). Leaves that are DTensors already are gathered first."""
+    return distribute_like(tree, tree_shardings(logical_tree, tree, mesh))
+
+
+def distribute_like(tree: Any, shardings: Any) -> Any:
+    """:func:`distribute` over a tree of :class:`NamedSharding` (``info["params"]``)."""
+    return pytree.tree_map(lambda x, sh: distribute(gather(x), sh), tree, shardings)
+
+
+def gather(x):
+    """A DTensor's full value on every rank (a collective); anything else as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def gather_tree(tree: Any) -> Any:
+    """The inverse of :func:`distribute_tree`: every DTensor leaf as its full tensor."""
+    return pytree.tree_map(gather, tree)
+
+
+_VIEWS = None
+
+
+class _EvenViews(TorchDispatchMode):
+    """Replicates a DTensor before a view that would split a sharded dimension
+    unevenly; every other operation goes on to DTensor as it is."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor, Replicate
+        kwargs = kwargs or {}
+        if func in _VIEWS and isinstance(args[0], DTensor):
+            try:
+                return func(*args, **kwargs)
+            except RuntimeError:
+                # DTensor refuses to split a sharded dimension here (its words
+                # differ between versions); a view of the replicated tensor is
+                # the same view
+                x = args[0]
+                if not any(p.is_shard() for p in x.placements):
+                    raise
+                pl = [Replicate() if p.is_shard() else p for p in x.placements]
+                return func(x.redistribute(x.device_mesh, pl), *args[1:], **kwargs)
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def sharded_ops():
+    """The context of a sharded forward and backward (see the module docstring)."""
+    global _VIEWS
+    from torch.distributed.tensor.experimental import implicit_replication
+    aten = torch.ops.aten
+    _VIEWS = _VIEWS or {aten.view.default, aten._unsafe_view.default,
+                        aten.reshape.default}
+    with implicit_replication(), _EvenViews():
+        yield

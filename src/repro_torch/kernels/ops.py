@@ -25,8 +25,19 @@ plain stages of ``core/fz.py`` say ``"reference"``). Deliberate difference:
 in the reference these spans run only while jax traces the enclosing fz jit
 (``cat="jit-trace"``, once a compilation); the port has no jit, so they are
 runtime spans, nested under the ``fz.*`` span of every call.
+
+On ``meta`` tensors (the dry-run's count) K4 and K6 are reached through two
+``torch.library`` custom ops, ``repro_torch::fused_compress`` and
+``repro_torch::fused_decompress``, whose fake implementations give the
+outputs' shapes alone -- capacity-sized bitflags, payload and ``nnz``, or the
+field -- so the pod hop runs without a kernel and without a host read; the
+wrappers themselves refuse every device but the card and the CPU. Every
+other call goes to the wrapper directly: a custom op's first call imports
+``torch._dynamo`` (seconds), and serving and training are host-bound.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -35,7 +46,7 @@ from ..core import quant, shuffle
 from ..obs import spans
 from . import fused_decode as _fd
 from .bitshuffle_flag import bitshuffle_flag, bitunshuffle_tiles
-from .fused_compress import TILE, fused_compress, fused_shuffle_encode
+from .fused_compress import FLAG_WORDS_PER_TILE, TILE, fused_compress, fused_shuffle_encode
 from .lorenzo_quant import lorenzo_quant
 
 __all__ = ["fused_compress_stages", "fused_decompress", "lorenzo_quantize",
@@ -53,6 +64,33 @@ def _no_outliers(device: torch.device):
     return empty, empty, torch.zeros((), dtype=torch.int32, device=device)
 
 
+@torch.library.custom_op("repro_torch::fused_compress", mutates_args=())
+def _k4(data: torch.Tensor, eb: torch.Tensor, capacity: int,
+        code_mode: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return fused_compress(data, eb, capacity=capacity, code_mode=code_mode)
+
+
+@_k4.register_fake
+def _k4_shapes(data, eb, capacity, code_mode):
+    n_tiles = -(-data.numel() // TILE)
+    return (data.new_empty((n_tiles * FLAG_WORDS_PER_TILE,), dtype=torch.uint32),
+            data.new_empty((capacity, 8), dtype=torch.uint16),
+            data.new_empty((), dtype=torch.int32))
+
+
+@torch.library.custom_op("repro_torch::fused_decompress", mutates_args=())
+def _k6(bitflags: torch.Tensor, payload: torch.Tensor, eb: torch.Tensor, shape: list[int],
+        code_mode: str, outlier_idx: Optional[torch.Tensor],
+        outlier_val: Optional[torch.Tensor]) -> torch.Tensor:
+    return _fd.fused_decompress(bitflags, payload, eb, shape=tuple(shape), code_mode=code_mode,
+                                outlier_idx=outlier_idx, outlier_val=outlier_val)
+
+
+@_k6.register_fake
+def _k6_shape(bitflags, payload, eb, shape, code_mode, outlier_idx, outlier_val):
+    return payload.new_empty(tuple(shape), dtype=torch.float32)
+
+
 def fused_compress_stages(data: torch.Tensor, eb: torch.Tensor, *, code_mode: str,
                           capacity: int, outlier_capacity: int = 0):
     """-> (bitflags, payload, nnz, outlier_idx, outlier_val, n_over)."""
@@ -63,8 +101,11 @@ def fused_compress_stages(data: torch.Tensor, eb: torch.Tensor, *, code_mode: st
             flat = shuffle.pad_to_tiles(codes.reshape(-1)).to(torch.uint16)
             bitflags, payload, nnz = fused_shuffle_encode(flat, capacity=capacity)
             return bitflags, payload, nnz, oidx, oval, n_over
-        bitflags, payload, nnz = fused_compress(data, eb, capacity=capacity,
-                                                code_mode=code_mode)
+        if data.is_meta:
+            bitflags, payload, nnz = _k4(data, eb, capacity, code_mode)
+        else:
+            bitflags, payload, nnz = fused_compress(data, eb, capacity=capacity,
+                                                    code_mode=code_mode)
         return (bitflags, payload, nnz, *_no_outliers(data.device))
 
 
@@ -74,6 +115,9 @@ def fused_decompress(bitflags: torch.Tensor, payload: torch.Tensor, eb: torch.Te
                      outlier_val: torch.Tensor | None = None) -> torch.Tensor:
     """One-launch decompress (K6) mirroring :func:`fused_compress_stages`."""
     with spans.leaf("fz.stage.fused_decompress", backend=backend_label(payload)):
+        if payload.is_meta:
+            return _k6(bitflags, payload, eb, [int(n) for n in shape], code_mode,
+                       outlier_idx, outlier_val)
         return _fd.fused_decompress(bitflags, payload, eb, shape=shape, code_mode=code_mode,
                                     outlier_idx=outlier_idx, outlier_val=outlier_val)
 

@@ -12,14 +12,19 @@ no ``pod`` axis and a step built on it never compresses (the reference
 behaves the same on one device). The elastic entry point ``make_mesh`` builds
 any layout, a one-rank ``(1, 1, 1)`` pod mesh included.
 
-Every function runs over the running process group and starts a one-rank
-group when none runs (NCCL on the card, gloo on the CPU, an in-memory store:
-no port, no file); a caller that runs several ranks starts its group first
-(``torch.distributed.init_process_group``). The meshes are built here; the
-training step runs ``data == model == 1`` (``train/step.py``).
+Every function runs over the running process group and starts one when none
+runs (NCCL on the card, gloo on the CPU): from torchrun's environment
+(``WORLD_SIZE`` above 1, ``env://``), else a one-rank group on an in-memory
+store (no port, no file); a caller that runs several ranks otherwise starts
+its group first (``torch.distributed.init_process_group``). Any layout runs:
+``data`` and ``model`` larger than 1 run the step on DTensors
+(``train/step.py``).
 """
 from __future__ import annotations
 
+import os
+
+import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
@@ -32,8 +37,13 @@ def start_local_group(device="cuda") -> bool:
     if dist.is_initialized():
         return False
     dev = resolve_device(device)
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                            store=dist.HashStore(), rank=0, world_size=1)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:       # started by torchrun
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     return True
 
 
@@ -57,7 +67,8 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device="cuda"):
 
 def make_local_mesh(model_parallel: int = 1, pods: int = 1, *, device="cuda"):
     """A mesh over the running group's ranks (a one-rank group if none runs)."""
-    n = dist.get_world_size() if dist.is_initialized() else 1
+    start_local_group(device)
+    n = dist.get_world_size()
     data = n // (model_parallel * pods)
     if data * model_parallel * pods != n:
         raise ValueError(f"{n} ranks do not split into {pods} pods x {model_parallel} "

@@ -85,8 +85,14 @@ def _ssd_chunked(xh, bmat, cmat, dt, A_log, D, h0):
     """The chunked SSD scan.
 
     xh: (B, S, nh, hd); bmat/cmat: (B, S, ds); dt: (B, S, nh) raw; h0: (B, nh,
-    hd, ds). Returns (y (B, S, nh, hd) float32, h_final).
+    hd, ds). Returns (y (B, S, nh, hd) float32, h_final). On DTensors it runs
+    per shard of batch and heads (``nn.per_shard``).
     """
+    if nn.is_dtensor(xh):
+        bh, b = {0: "batch", 2: "heads"}, {0: "batch"}
+        return nn.per_shard(_ssd_chunked, [xh, bmat, cmat, dt, A_log, D, h0],
+                            [bh, b, b, bh, {0: "heads"}, {0: "heads"}, {0: "batch", 1: "heads"}],
+                            [bh, {0: "batch", 1: "heads"}])
     B, S, nh, hd = xh.shape
     ds = bmat.shape[-1]
     c = min(CHUNK, S)

@@ -91,7 +91,20 @@ def route(lp: dict, x: torch.Tensor, cfg: ArchConfig, C: int) -> dict:
 def experts(lp: dict, x: torch.Tensor, dispatch: torch.Tensor,
             combine: torch.Tensor) -> torch.Tensor:
     """The SwiGLU experts on their dispatched slots, combined back: x (G, g, d)
-    -> (G, g, d) in x's type."""
+    -> (G, g, d) in x's type. On DTensors each rank runs its groups through its
+    experts (``nn.per_shard``), and the combine is a partial sum over the
+    experts' ranks."""
+    if nn.is_dtensor(x):
+        w = {"we_gate": lp["we_gate"], "we_up": lp["we_up"], "we_down": lp["we_down"]}
+        gr, er = {0: "groups"}, {0: "experts"}
+        ge = {0: "groups", 2: "experts"}
+        # the weights come before the masks: the experts split as the weights
+        # do (on ``tp``), not as the masks, which are whole on every rank
+        return nn.per_shard(
+            lambda xl, wg, wu, wd, dl, cl: experts(
+                {"we_gate": wg, "we_up": wu, "we_down": wd}, xl, dl, cl),
+            [x, w["we_gate"], w["we_up"], w["we_down"], dispatch, combine],
+            [gr, er, er, er, ge, ge], [{0: "groups", "sum": "experts"}])
     dt = x.dtype
     xin = torch.einsum("gtec,gtd->egcd", dispatch.to(dt), x)                    # (E,G,C,d)
     h1 = torch.einsum("egcd,edf->egcf", xin, lp["we_gate"].to(dt))

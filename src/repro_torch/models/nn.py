@@ -24,11 +24,21 @@ unless installed:
   gradients become final; the overlap step installs its bucket reducer's tap
   there for the forward (``dist.bucketed_reduce.BucketReducer``).
 
-The reference's bfloat16-output switch (``set_bf16_matmul_output``) waits for
-the dry-run tooling.
+The dry-run's bfloat16-output switch (``set_bf16_matmul_output``, off by
+default): a bfloat16 GEMM here already rounds its float32 accumulation once to
+bfloat16, as the reference's ``dense`` does in either mode, so the switch moves
+only ``attention.flash_attention``'s operands (bfloat16 q/k/v and
+probabilities, float32 statistics), as in the reference.
+
+Sharded activations are DTensors (``train.step`` installs a sharder that
+redistributes them). :func:`per_shard` runs a function that is parallel over
+named dimensions (batch, heads) on each rank's local blocks: the chunked
+attention and the recurrent scans run there as plain tensor code, where
+DTensor would otherwise carry every chunk's operations.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -37,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..dist.sharding import is_dtensor
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +67,102 @@ def shard_act(x: torch.Tensor, logical: tuple) -> torch.Tensor:
     if _ACT_SHARDER is None:
         return x
     return _ACT_SHARDER(x, logical)
+
+
+_BF16_MATMUL_OUT = False
+
+
+def set_bf16_matmul_output(on: bool) -> None:
+    global _BF16_MATMUL_OUT
+    _BF16_MATMUL_OUT = on
+
+
+def bf16_matmul_output() -> bool:
+    return _BF16_MATMUL_OUT
+
+
+_REPEAT_HOOK: Callable[[float], Any] | None = None
+
+
+def set_repeat_hook(fn: Callable[[float], Any] | None) -> None:
+    global _REPEAT_HOOK
+    _REPEAT_HOOK = fn
+
+
+def repeated(n: float):
+    """A context whose operations stand for ``n`` runs of themselves: a cost
+    trace (``launch.hlo_cost``) counts them ``n`` times; nothing else changes."""
+    return _REPEAT_HOOK(n) if _REPEAT_HOOK is not None else contextlib.nullcontext()
+
+
+def per_shard(fn: Callable, args: list, roles: list[dict], out_roles: list[dict]):
+    """``fn(*args)`` on each rank's local blocks, for a function that is parallel
+    over the dimensions named in ``roles``.
+
+    ``roles[i]`` maps a dimension of ``args[i]`` to a role name (``"batch"``,
+    ``"heads"``); ``out_roles`` does the same for each of ``fn``'s outputs (a
+    tuple, or one tensor), and its key ``"sum"`` (``"max"``) names a role that
+    the function reduces away: the output is a partial sum (max) over that
+    role's ranks. A role is split over the mesh dimensions that split
+    it in the first DTensor argument that has it, unless some argument's size
+    there does not divide; every other dimension is replicated first. An
+    argument replicated where the call is split gets its gradient summed over
+    those ranks. Without a DTensor argument this is ``fn(*args)``.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    first = next((a for a in args if isinstance(a, DTensor)), None)
+    if first is None:
+        return fn(*args)
+    mesh = first.device_mesh
+    role_mesh: dict[str, list[int]] = {}
+    for a, r in zip(args, roles):
+        if isinstance(a, DTensor):
+            for d, role in r.items():
+                if role not in role_mesh:
+                    role_mesh[role] = [m for m, p in enumerate(a.placements) if p.is_shard(d)]
+    for role, dims in role_mesh.items():
+        n = 1
+        for m in dims:
+            n *= mesh.size(m)
+        if any(a.shape[d] % n for a, r in zip(args, roles) for d, ro in r.items()
+               if ro == role):
+            role_mesh[role] = []
+    split = {m for dims in role_mesh.values() for m in dims}
+
+    def placements(r: dict) -> list:
+        pl = [Replicate()] * mesh.ndim
+        for d, role in r.items():
+            for m in role_mesh.get(role, []):
+                pl[m] = Partial(d) if d in ("sum", "max") else Shard(d)
+        return pl
+
+    locs = []
+    for a, r in zip(args, roles):
+        pl = placements(r)
+        if isinstance(a, DTensor):
+            grad_pl = [Partial() if m in split and p.is_replicate() else p
+                       for m, p in enumerate(pl)]
+            locs.append(a.redistribute(mesh, pl).to_local(grad_placements=grad_pl))
+        elif isinstance(a, torch.Tensor):
+            from ..dist.sharding import local_slice
+            locs.append(local_slice(a, mesh, pl))
+        else:
+            locs.append(a)
+    outs = fn(*locs)
+    single = not isinstance(outs, tuple)
+    wrapped = tuple(DTensor.from_local(o, mesh, placements(r), run_check=False)
+                    for o, r in zip((outs,) if single else outs, out_roles))
+    return wrapped[0] if single else wrapped
+
+
+def cache_slots(x: torch.Tensor, extra: int) -> torch.Tensor:
+    """K or V (B, S, H, D) padded with ``extra`` zero slots past the sequence,
+    as bfloat16: a cache leaf. On DTensors, per shard of batch and heads."""
+    pad = (0, 0, 0, 0, 0, extra)
+    if is_dtensor(x):
+        bh = {0: "batch", 2: "heads"}
+        return per_shard(lambda xl: F.pad(xl, pad).to(torch.bfloat16), [x], [bh], [bh])
+    return F.pad(x, pad).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +293,28 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d_in) @ w (d_in, d_out) in x's type, float32 accumulation."""
+    """x (..., d_in) @ w (d_in, d_out) in x's type, float32 accumulation.
+
+    On DTensors, ``x``'s contracted dimension stays split only on the mesh
+    dimensions that split ``w``'s rows (the row-parallel product, a partial
+    sum); elsewhere it is gathered first, and a partial sum is reduced first,
+    so that ``w``'s columns keep their split (the column-parallel product)
+    and no rank computes every column. A row-parallel product's partial sums
+    are reduced at once, so no partial sum enters the residual stream."""
+    if is_dtensor(x) and is_dtensor(w):
+        from torch.distributed.tensor import Replicate
+        last = x.ndim - 1
+        pl = [Replicate() if p.is_partial() or (p.is_shard(last)
+                                                 and not w.placements[m].is_shard(0)) else p
+              for m, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+        y = torch.matmul(x, w.to(x.dtype))
+        if any(p.is_partial() for p in y.placements):
+            # the row-parallel product's sum over its ranks (Megatron's all-reduce)
+            y = y.redistribute(y.device_mesh, [Replicate() if p.is_partial() else p
+                                               for p in y.placements])
+        return y
     return torch.matmul(x, w.to(x.dtype))
 
 
@@ -239,7 +367,34 @@ def sharded_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     reference's ``stop_gradient``), then the log-sum-exp, then the mean over
     tokens."""
     lf = logits.to(torch.float32)
+    if is_dtensor(lf):
+        return mean(_sharded_lse_minus_gold(lf, labels))
     m = torch.amax(lf, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
     gold = torch.take_along_dim(lf, labels.to(torch.int64)[..., None], dim=-1)[..., 0]
     return mean(lse - gold)
+
+
+def _sharded_lse_minus_gold(lf, labels):
+    """``sharded_xent``'s per-token terms on vocab-sharded DTensor logits: the
+    max, the exp-sum and the label's column each on the rank's own columns
+    (``per_shard``), then reduced over the vocabulary's ranks, so no rank holds
+    a whole vocabulary row."""
+    from torch.distributed.tensor import Replicate
+    mesh = lf.device_mesh
+    vdims = [m for m, p in enumerate(lf.placements) if p.is_shard(lf.ndim - 1)]
+    coord, r = mesh.get_coordinate(), 0
+    for m in vdims:
+        r = r * mesh.size(m) + coord[m]
+    v, bs = {0: "batch", 1: "seq", 2: "vocab"}, {0: "batch", 1: "seq"}
+    m = per_shard(lambda ll: torch.amax(ll, dim=-1), [lf.detach()], [v],
+                  [{0: "batch", 1: "seq", "max": "vocab"}])
+    m = m.redistribute(mesh, [Replicate() if p.is_partial() else p for p in m.placements])
+    sumexp = per_shard(lambda ll, mm: torch.sum(torch.exp(ll - mm[..., None]), dim=-1),
+                       [lf, m], [v, bs], [{0: "batch", 1: "seq", "sum": "vocab"}])
+
+    def pick(ll, lab):
+        cols = torch.arange(ll.shape[-1], device=ll.device) + r * ll.shape[-1]
+        return torch.sum(torch.where(cols == lab.to(torch.int64)[..., None], ll, 0.0), -1)
+    gold = per_shard(pick, [lf, labels], [v, bs], [{0: "batch", 1: "seq", "sum": "vocab"}])
+    return torch.log(sumexp) + m - gold

@@ -83,7 +83,12 @@ def _mix(x: torch.Tensor, xp: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 
 def _wkv_chunked(r, k, v, la, u, s0):
     """r/k/v: (B, S, nh, hd); la: (B, S, nh, hd) log-decay (<= 0); u: (nh, hd);
-    s0: (B, nh, hd, hd). Returns (o (B, S, nh, hd) float32, final state)."""
+    s0: (B, nh, hd, hd). Returns (o (B, S, nh, hd) float32, final state). On
+    DTensors it runs per shard of batch and heads (``nn.per_shard``)."""
+    if nn.is_dtensor(r):
+        bh, st = {0: "batch", 2: "heads"}, {0: "batch", 1: "heads"}
+        return nn.per_shard(_wkv_chunked, [r, k, v, la, u, s0],
+                            [bh, bh, bh, bh, {0: "heads"}, st], [bh, st])
     B, S, nh, hd = r.shape
     c = min(CHUNK, S)
     pad = (-S) % c

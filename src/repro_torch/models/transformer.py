@@ -198,9 +198,8 @@ def forward_prefill(params: dict, cfg: ArchConfig, batch: dict):
         x = x + nn.dense(o.reshape(B, S, -1), lp["wo"])
         h = nn.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + _ffn(lp, h, cfg)[0]
-        pad = (0, 0, 0, 0, 0, CACHE_MARGIN)
-        ks.append(torch.nn.functional.pad(k, pad).to(torch.bfloat16))
-        vs.append(torch.nn.functional.pad(v, pad).to(torch.bfloat16))
+        ks.append(nn.cache_slots(k, CACHE_MARGIN))
+        vs.append(nn.cache_slots(v, CACHE_MARGIN))
     if "lengths" in batch:
         lengths = batch["lengths"].to(torch.int32)
     else:

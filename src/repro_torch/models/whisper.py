@@ -13,7 +13,6 @@ Decode runs the decoder against its self-attention K/V cache (``k``, ``v``:
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
@@ -132,8 +131,7 @@ def _decoder(params: dict, cfg: ArchConfig, tokens: torch.Tensor, enc_out: torch
         x, (ks, vs, kc, vc) = (checkpoint(_dec_block, *args, use_reentrant=False)
                                if cfg.remat and not collect_cache else _dec_block(*args))
         if collect_cache:
-            pad = (0, 0, 0, 0, 0, Smax - S)
-            caches.append((F.pad(ks, pad).to(torch.bfloat16), F.pad(vs, pad).to(torch.bfloat16),
+            caches.append((nn.cache_slots(ks, Smax - S), nn.cache_slots(vs, Smax - S),
                            kc.to(torch.bfloat16), vc.to(torch.bfloat16)))
     x = nn.rms_norm(x, dec["final_norm"], cfg.norm_eps)
     return x, ([torch.stack(c) for c in zip(*caches)] if collect_cache else None)

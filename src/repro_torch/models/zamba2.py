@@ -15,7 +15,6 @@ inputs in the activations' type), as in the reference.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
@@ -137,11 +136,10 @@ def forward_prefill(params: dict, cfg: ArchConfig, batch: dict):
     e0 = x
     K = n_invocations(cfg)
     ks, vs, ssms, convs = [], [], [], []
-    pad = (0, 0, 0, 0, 0, cache_len(S) - S)
     for fuse, mp in zip(torch.unbind(params["fuse_proj"], 0), _stack_mamba(params["mamba"], K)):
         x, k, v, ssm, conv = _superblock(params["shared"], fuse, mp, x, e0, cfg, pos)
-        ks.append(F.pad(k, pad).to(torch.bfloat16))
-        vs.append(F.pad(v, pad).to(torch.bfloat16))
+        ks.append(nn.cache_slots(k, cache_len(S) - S))
+        vs.append(nn.cache_slots(v, cache_len(S) - S))
         ssms += ssm
         convs += conv
     x = nn.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)

@@ -8,6 +8,7 @@
     logits, (k_new, v_new) = model.decode_paged(params, pages, token, use_kernels=True)
     logits, cache = model.prefill_suffix(params, prefix, batch)
     specs = model.input_specs(shape)       # meta tensors + logical shardings
+    cache, logical = model.cache_specs(shape)   # meta tensors + logical shardings
 
 ``build`` dispatches on the family, as the reference's does: dense, moe and
 vlm to ``transformer``, hybrid to ``zamba2``, ssm to ``rwkv6`` and audio to
@@ -30,6 +31,7 @@ from ..configs.base import ArchConfig, ShapeConfig
 from . import nn, rwkv6, transformer, whisper, zamba2
 
 DP = "dp"    # batch/activation axis -> ("pod", "data")
+TP = "tp"
 
 FAMILY_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
                   "hybrid": zamba2, "ssm": rwkv6, "audio": whisper}
@@ -119,6 +121,36 @@ class Model:
 
     def make_cache(self, B: int, S: int, *, device) -> dict:
         return self.family_module.init_cache(self.cfg, B, S, device=device)
+
+    def cache_specs(self, shape: ShapeConfig) -> tuple[dict, dict]:
+        """The decode cache of ``shape`` as ``meta`` tensors (no storage), and
+        each leaf's logical axes."""
+        cache = self.make_cache(shape.global_batch, shape.seq_len, device="meta")
+        return cache, cache_shardings(self.cfg, cache)
+
+
+def cache_shardings(cfg: ArchConfig, cache: dict) -> dict:
+    """Logical axes of a cache's leaves, the reference's rule: KV caches are
+    sequence-sharded on ``tp`` (the flash-decoding layout) and batch-sharded on
+    ``dp``; recurrent states shard heads (``ssm``, ``wkv``) or channels
+    (``conv``) on ``tp``; token-shift states and lengths on ``dp`` alone."""
+    out = {}
+    for name, leaf in cache.items():
+        if name in ("k", "v"):           # (L, B, Smax, KVH, hd)
+            out[name] = (None, DP, TP, None, None)
+        elif name in ("xk", "xv"):       # whisper cross KV (L, B, ctx, H, hd)
+            out[name] = (None, DP, None, TP, None)
+        elif name in ("ssm", "wkv"):     # (L, B, nh, hd, ds) / (L, B, nh, hdk, hdv)
+            out[name] = (None, DP, TP, None, None)
+        elif name == "conv":             # (L, B, W-1, C)
+            out[name] = (None, DP, None, TP)
+        elif name in ("sh_a", "sh_f"):   # (L, B, d)
+            out[name] = (None, DP, None)
+        elif name == "length":
+            out[name] = (DP,)
+        else:
+            out[name] = (None,) * leaf.ndim
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

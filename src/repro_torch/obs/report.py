@@ -3,9 +3,11 @@
 
 Two datasets side by side: wall-clock per named region (the span histograms)
 and, where the caller has them, bytes moved per named region (a plain
-``{tag: bytes}`` dict; the reference also takes ``launch.hlo_cost``'s
-``cross_pod_by_tag`` form, which the port accepts but has no producer of
-yet). :func:`step_report` performs that join: one row per span name with
+``{tag: bytes}`` dict, or ``launch.hlo_cost.analyze(...)["cross_pod_by_tag"]``'s
+``{tag: {collective: bytes}}`` form, whose bucket tags are a part of the
+hops' span names ``dist.bucket<i>_reduce``). Difference from the reference:
+a dict leaf that matches by part of a span's name is summed too (the
+reference's sum of such hits fails on dicts). :func:`step_report` performs that join: one row per span name with
 call count, p50/p99/max milliseconds, total time, and — where a byte tag
 matches the span name (exact, or the tag appearing in the span's dotted
 name) — the attributed bytes and the implied effective bandwidth.
@@ -52,13 +54,17 @@ def _find_bytes(span_name: str, bytes_by_tag: dict) -> float | None:
     if span_name in bytes_by_tag:
         v = bytes_by_tag[span_name]
     else:
-        hits = [v for t, v in bytes_by_tag.items() if t in span_name]
+        hits = [_leaf_bytes(v) for t, v in bytes_by_tag.items() if t in span_name]
         if not hits:
             return None
         v = sum(hits)
-    if isinstance(v, dict):          # {collective: bytes} leaf form
-        v = sum(v.values())
-    return float(v)
+    return float(_leaf_bytes(v))
+
+
+def _leaf_bytes(v) -> float:
+    """A tag's bytes: a number, or ``{collective: bytes}`` (the cost model's
+    ``cross_pod_by_tag`` leaf form), summed."""
+    return sum(v.values()) if isinstance(v, dict) else v
 
 
 def step_report(registry: _reg.Registry | None = None,

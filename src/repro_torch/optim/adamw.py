@@ -8,6 +8,10 @@ are the master cast to each parameter's type. The state is
 ``{"m", "v", "master", "count"}`` (``count`` an int32 0-d tensor); every
 function returns new tensors and leaves its inputs as they were.
 
+The leaves may be DTensors (the sharded step): every update is elementwise,
+so the state keeps the parameters' layout, and ``global_norm``'s sums reduce
+over whole tensors (a partial sum is reduced before the square root).
+
 Leaves are taken in JAX's flatten order (``repro_torch.pytree``: sorted dict
 keys), so ``global_norm``'s Python sum adds the leaves' squares in the
 reference's order.
@@ -33,7 +37,7 @@ class AdamWConfig:
 
 def adamw_init(params: Any) -> dict:
     """Zero moments, float32 master copies, ``count`` 0, on the parameters' devices."""
-    f32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    f32 = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     first = pytree.leaves(params)[0]
     return {
         "m": pytree.tree_map(f32, params),

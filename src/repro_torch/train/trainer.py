@@ -20,7 +20,10 @@ tree (in the port's layout, e.g. the reference's weights carried over by
 as every entry point of the port. With a ``DeviceMesh`` pod axis (one pod a
 rank) the error state is gathered to the stacked ``(n_pods, ...)`` layout the
 reference saves, rank 0 writes the checkpoint, and each rank restores its own
-pod's slice.
+pod's slice. On a mesh with in-pod axes larger than 1 the parameters and the
+optimizer state are DTensors laid out by the step's ``info`` (a step returns
+them so); a save gathers every leaf whole (a collective on every rank) before
+rank 0 writes, and a restore lays the full leaves out again.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from ..ckpt import checkpoint as ckpt
 from ..data.tokens import TokenStream
 from ..device import resolve_device
 from ..dist import compressed_allreduce as car
+from ..dist import sharding as shd
 from ..models import zoo
 from ..obs import sentinels
 from ..optim import adamw_init
@@ -94,6 +98,8 @@ class Trainer:
             init_params = model.init(torch.Generator(device=self.device).manual_seed(seed),
                                      device=self.device)
         self.params = pytree.tree_map(lambda t: t.to(self.device), init_params)
+        if self.info["sharded"]:
+            self.params = shd.distribute_like(self.params, self.info["params"])
         self.opt = adamw_init(self.params)
         self.err = self.info["make_err_state"](model.abstract_params())
         self.step = 0
@@ -105,6 +111,10 @@ class Trainer:
     def _state(self, err=None):
         return {"params": self.params, "opt": self.opt,
                 "err": self.err if err is None else err}
+
+    def _full_state(self, err=None):
+        """``_state`` with every DTensor leaf gathered whole (a collective)."""
+        return shd.gather_tree(self._state(err))
 
     def _stacked_err(self):
         """The error state in the reference's stacked ``(n_pods, ...)`` layout:
@@ -118,6 +128,10 @@ class Trainer:
     def _restore(self):
         state, meta = ckpt.restore(self.ckpt_dir, self._state(), device=self.device)
         self.params, self.opt = state["params"], state["opt"]
+        if self.info["sharded"]:
+            self.params = shd.distribute_like(self.params, self.info["params"])
+            self.opt = {k: (v if k == "count" else shd.distribute_like(v, self.info["params"]))
+                        for k, v in self.opt.items()}
         pod = self.info["pod"]
         self.err = state["err"] if pod is None else pytree.tree_map(
             lambda e: e[pod:pod + 1].contiguous(), state["err"])
@@ -127,9 +141,10 @@ class Trainer:
         if self.ckpt_dir is None:
             return
         err = self._stacked_err()
+        state = self._full_state(err)
         ranks = dist.is_initialized() and dist.get_world_size() > 1
         if not ranks or dist.get_rank() == 0:
-            ckpt.save(self.ckpt_dir, self.step, self._state(err),
+            ckpt.save(self.ckpt_dir, self.step, state,
                       meta={"data_seed": self.stream.seed},
                       codec=self.ckpt_codec, keep_last=self.keep_last, device=self.device)
         if ranks:

@@ -23,11 +23,6 @@ REF = ROOT / "src" / "repro"
 
 # Out of scope, each with its reason:
 OUT_OF_SCOPE = {
-    # the dry-run tooling (ROADMAP queue 1, item 8): the (arch, shape, mesh) cells
-    # and the prefill / decode steps only the dry-run calls
-    ("repro.configs", "cells_for"),
-    ("repro.train", "build_prefill_step"),
-    ("repro.train", "build_decode_step"),
     # Pallas-only: the BlockSpec and scratch declarations of a TPU launch; a
     # CUDA launch's KernelSpec states grid, threads and shared bytes instead
     ("repro.analysis", "BlockDecl"),
