@@ -1,0 +1,7 @@
+"""Mean host ms a call of the program's own ``fz.compress`` span (``obs``:
+``span_ms`` sum over ``span_calls``), over the window's calls."""
+from fzbench import yardstick
+
+
+def read(record):
+    return yardstick.span_mean_ms(record, "fz.compress")

@@ -1,0 +1,7 @@
+"""Device ops (kernels, memsets, copies) a call launches inside the program's
+``fz.compress`` profiler range, over the profiled calls."""
+from fzbench import yardstick
+
+
+def read(record):
+    return yardstick.launches_per_call(record, "fz.compress")
