@@ -1266,12 +1266,13 @@ def telemetry_phase(card, dev, serving, x) -> None:
         parents.setdefault(ev["name"], set()).add(ev["parent"])
     pool_spans = {"kvpool.gather", "kvpool.park", "kvpool.cold_read"}
     fz_spans = {n for n in parents if n.startswith("fz.") and not n.startswith("fz.stage")}
+    fz_calls = fz_spans - {"fz.used_bytes"}     # the pool's size reads nest in any step
     stages = [e for e in events if e["name"].startswith("fz.stage")]
     stage_parents = {e["parent"] for e in stages}
     if (parents.get("sched.step") != {"engine.serve"} or not pool_spans <= set(parents)
             or not all(parents[n] <= {"sched.step", "kvpool.gather"} for n in pool_spans)
-            or not set().union(*(parents[n] for n in fz_spans)) <= pool_spans
-            or not stage_parents & fz_spans or not stage_parents <= fz_spans | {"kvpool.park"}
+            or not set().union(*(parents[n] for n in fz_calls)) <= pool_spans
+            or not stage_parents & fz_calls or not stage_parents <= fz_calls | {"kvpool.park"}
             or not all(e["args"].get("backend") == "cuda" and e["cat"] == "span"
                        for e in stages)):
         raise AssertionError(f"span nesting: {parents}")

@@ -33,17 +33,26 @@ entry points run on the CUDA card unless ``device="cpu"`` is given, and raise
 when no card is available.
 
 Telemetry (:mod:`repro_torch.obs`), as the reference wires it: each public
-entry point opens an ``fz.<op>`` span (``n=``/``rows=`` and ``path=`` the
-resolved route: ``reference|staged|fused``) and counts one ``fz_dispatches{op,path}``
-a call, with the container's ``fz_raw_bytes`` / ``fz_wire_bytes`` taken from
-shapes (no device read). The batch forms are one dispatch for all their
-rows, which is what lets the pool's ``*_dispatches`` and the fz counters
-agree. While a CUDA graph is captured the entry points count nothing (a
-capture is not a dispatch); deliberate difference: their span still opens
-and records a trace-time event, where the reference opens none at trace
-time (it saves a capture query a call). The entry point's span takes its
-stage spans' trace-time decision and carries the dispatch accounting, so a
-call queues one record (the paths are host-bound on the card).
+entry point opens an ``fz.<op>`` span at its first line, so the span holds
+the whole call (input preparation, ``resolve_device``, the tuner's route
+lookup), and sets ``n=``/``rows=`` and ``path=`` (the resolved route:
+``reference|staged|fused``) on it once the route is known; it counts one
+``fz_dispatches{op,path}`` a call. The batch forms are one dispatch for all
+their rows, which is what lets the pool's ``*_dispatches`` and the fz
+counters agree. Inside the span, ``compress`` runs ``resolve_eb`` under the
+leaf ``fz.stage.resolve_eb``; the routes' stages have theirs
+(``kernels/ops.py``). ``FZCompressed.used_bytes`` runs under the leaf
+``fz.used_bytes`` and counts its two host reads in
+``fz_host_syncs{site=used_bytes}``, as ``core/quant.py`` and the staged
+and plain shuffle-encode stages count their ``nonzero`` reads (sites
+``dual_quantize`` and ``compact_blocks``). While a CUDA graph is
+captured the entry points count nothing (a capture is not a dispatch);
+deliberate difference: their span still opens and records a trace-time
+event, where the reference opens none at trace time (it saves a capture
+query a call). The entry point's span takes its stage spans' trace-time
+decision and carries the dispatch accounting, so a call queues one record
+(the paths are host-bound on the card). Deliberate difference: the
+reference also fills two byte histograms a call, which nothing here read.
 ``decompress_unmetered`` is ``decompress``
 without span or counter, for the error-bound sentinels, whose sampled checks
 must not perturb the dispatch accounting they audit. ``to_bytes`` /
@@ -70,6 +79,7 @@ from . import entropy as ent
 from . import quant, shuffle
 
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
+_SYNC_SITE = {"site": "used_bytes"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,8 +140,10 @@ class FZCompressed:
             self, **{f: getattr(self, f).to(device) for f in self.FIELDS})
 
     def used_bytes(self) -> int:
-        return enc.used_bytes(FZConfig.n_blocks(self.n), int(self.nnz_blocks),
-                              int(self.n_outliers))
+        with spans.leaf("fz.used_bytes"):
+            nnz, n_outliers = int(self.nnz_blocks), int(self.n_outliers)
+        spans.count("fz_host_syncs", _SYNC_SITE, 2)
+        return enc.used_bytes(FZConfig.n_blocks(self.n), nnz, n_outliers)
 
     def raw_bytes(self) -> int:
         return self.n * _ITEMSIZE[self.dtype_name]
@@ -221,7 +233,9 @@ def _ref_quant(data, eb, *, code_mode, outlier_capacity):
 
 def _ref_shuffle_encode(codes_flat, *, capacity):
     with spans.leaf("fz.stage.shuffle_encode", backend="reference"):
-        return enc.encode(shuffle.bitshuffle(codes_flat), capacity=capacity)
+        out = enc.encode(shuffle.bitshuffle(codes_flat), capacity=capacity)
+    spans.count("fz_host_syncs", ops.COMPACT_SYNC_SITE)
+    return out
 
 
 def _ref_unshuffle(words_flat):
@@ -254,24 +268,12 @@ def _metered(s: obs.span) -> obs.span:
     return s
 
 
-def _count_dispatch(s: obs.span, op: str, out: FZCompressed | None = None,
-                    wire_only: bool = False) -> None:
+def _count_dispatch(s: obs.span, op: str) -> None:
     """One public call = one dispatch, counted on the route of the entry point's
     span ``s`` (its ``path`` attribute) if the span ran (a capture is not a
-    dispatch); the byte histograms come from shapes. ``wire_only``: the batch
-    form records only the wire bytes."""
+    dispatch)."""
     if obs.registry._enabled:
-        raw = None if out is None or wire_only else out.raw_bytes()
-        wire = None if out is None else out.wire_bytes()
-        s.then = (_apply_dispatch, op, s.attrs["path"], raw, wire)
-
-
-def _apply_dispatch(op: str, path: str, raw: int | None, wire: int | None) -> None:
-    obs.registry.add_now("fz_dispatches", {"op": op, "path": path})
-    if raw is not None:
-        obs.registry.observe_now("fz_raw_bytes", {"op": op}, raw)
-    if wire is not None:
-        obs.registry.observe_now("fz_wire_bytes", {"op": op}, wire)
+        s.then = (obs.registry.add_now, "fz_dispatches", {"op": op, "path": s.attrs["path"]})
 
 
 def _eb_tensor(eb_abs, device: torch.device) -> torch.Tensor:
@@ -281,21 +283,25 @@ def _eb_tensor(eb_abs, device: torch.device) -> torch.Tensor:
 
 def compress(data, cfg: FZConfig, *, device="cuda") -> FZCompressed:
     """Error-bounded lossy compression of a 1-3D float array."""
-    x, dtype_name = _as_input(data, resolve_device(device, allow_meta=True))
-    cfg = _resolved(cfg, "compress", x.numel(), dtype_name, x.device)
-    with _metered(obs.span("fz.compress", n=x.numel(), path=_path(cfg))) as s:
-        out = _compress_core(x, resolve_eb(x, cfg), cfg, dtype_name)
-        _count_dispatch(s, "compress", out)
+    with _metered(obs.span("fz.compress")) as s:
+        x, dtype_name = _as_input(data, resolve_device(device, allow_meta=True))
+        cfg = _resolved(cfg, "compress", x.numel(), dtype_name, x.device)
+        s.attrs = {"n": x.numel(), "path": _path(cfg)}
+        with spans.leaf("fz.stage.resolve_eb", backend=ops.backend_label(x)):
+            eb = resolve_eb(x, cfg)
+        out = _compress_core(x, eb, cfg, dtype_name)
+        _count_dispatch(s, "compress")
     return out
 
 
 def compress_with_eb(data, eb_abs, cfg: FZConfig, *, device="cuda") -> FZCompressed:
     """Compress against a caller-supplied absolute error bound."""
-    x, dtype_name = _as_input(data, resolve_device(device))
-    cfg = _resolved(cfg, "compress", x.numel(), dtype_name, x.device)
-    with _metered(obs.span("fz.compress", n=x.numel(), path=_path(cfg))) as s:
+    with _metered(obs.span("fz.compress")) as s:
+        x, dtype_name = _as_input(data, resolve_device(device))
+        cfg = _resolved(cfg, "compress", x.numel(), dtype_name, x.device)
+        s.attrs = {"n": x.numel(), "path": _path(cfg)}
         out = _compress_core(x, _eb_tensor(eb_abs, x.device), cfg, dtype_name)
-        _count_dispatch(s, "compress", out)
+        _count_dispatch(s, "compress")
     return out
 
 
@@ -329,9 +335,10 @@ def _compress_core(x: torch.Tensor, eb: torch.Tensor, cfg: FZConfig,
 
 def decompress(c: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor:
     """Inverse pipeline: decode -> bit-unshuffle -> inverse Lorenzo -> dequantize."""
-    c = c.to(resolve_device(device, allow_meta=True))
-    cfg = _resolved(cfg, "decompress", c.n, c.dtype_name, c.payload.device)
-    with _metered(obs.span("fz.decompress", n=c.n, path=_path(cfg))) as s:
+    with _metered(obs.span("fz.decompress")) as s:
+        c = c.to(resolve_device(device, allow_meta=True))
+        cfg = _resolved(cfg, "decompress", c.n, c.dtype_name, c.payload.device)
+        s.attrs = {"n": c.n, "path": _path(cfg)}
         out = _decompress(c, cfg)
         _count_dispatch(s, "decompress")
     return out
@@ -377,42 +384,38 @@ def compress_batch_with_eb(pages_flat, eb_abs, cfg: FZConfig, *,
     ``compress_with_eb`` call, as the reference pins its vmapped form. The
     rows run one after another.
     """
-    x = torch.as_tensor(pages_flat).to(resolve_device(device))
-    if x.ndim < 2 or x.shape[0] == 0:
-        raise ValueError(f"compress_batch_with_eb takes a non-empty leading batch "
-                         f"dimension, got shape {tuple(x.shape)}")
-    cfg = _resolved(cfg, "compress", x[0].numel(), _dtype_name(x), x.device)
-
-    def run():
+    with _metered(obs.span("fz.compress_batch")) as s:
+        x = torch.as_tensor(pages_flat).to(resolve_device(device))
+        if x.ndim < 2 or x.shape[0] == 0:
+            raise ValueError(f"compress_batch_with_eb takes a non-empty leading batch "
+                             f"dimension, got shape {tuple(x.shape)}")
+        cfg = _resolved(cfg, "compress", x[0].numel(), _dtype_name(x), x.device)
+        s.attrs = {"rows": x.shape[0], "path": _path(cfg)}
         eb = _eb_tensor(eb_abs, x.device)
         rows = []
         for i in range(x.shape[0]):
             row, dtype_name = _as_input(x[i], x.device)
             rows.append(_compress_core(row, eb, cfg, dtype_name))
-        return dataclasses.replace(
+        out = dataclasses.replace(
             rows[0], **{f: torch.stack([getattr(r, f) for r in rows])
                         for f in FZCompressed.FIELDS})
-    with _metered(obs.span("fz.compress_batch", rows=x.shape[0], path=_path(cfg))) as s:
-        out = run()
-        _count_dispatch(s, "compress", out, wire_only=True)
+        _count_dispatch(s, "compress")
     return out
 
 
 def decompress_batch(comp: FZCompressed, cfg: FZConfig, *, device="cuda") -> torch.Tensor:
     """Inverse of :func:`compress_batch_with_eb` -> float32[batch, *shape]."""
-    comp = comp.to(resolve_device(device))
-    if comp.nnz_blocks.ndim != 1:
-        raise ValueError("decompress_batch takes a container stacked along a batch dimension")
-    cfg = _resolved(cfg, "decompress", comp.n, comp.dtype_name, comp.payload.device)
-
-    def run():
-        return torch.stack([
+    with _metered(obs.span("fz.decompress_batch")) as s:
+        comp = comp.to(resolve_device(device))
+        if comp.nnz_blocks.ndim != 1:
+            raise ValueError("decompress_batch takes a container stacked along a batch "
+                             "dimension")
+        cfg = _resolved(cfg, "decompress", comp.n, comp.dtype_name, comp.payload.device)
+        s.attrs = {"rows": comp.nnz_blocks.shape[0], "path": _path(cfg)}
+        out = torch.stack([
             _decompress(dataclasses.replace(comp, **{f: getattr(comp, f)[i]
                                                      for f in FZCompressed.FIELDS}), cfg)
             for i in range(comp.nnz_blocks.shape[0])])
-    with _metered(obs.span("fz.decompress_batch", rows=comp.nnz_blocks.shape[0],
-                           path=_path(cfg))) as s:
-        out = run()
         _count_dispatch(s, "decompress")
     return out
 

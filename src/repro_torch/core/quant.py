@@ -10,14 +10,19 @@ only at the container boundary (``core/fz.py``).
 
 With ``outlier_capacity`` K > 0 the first K overflowing deltas, in flat order,
 keep their exact int32 residual against their flat index; unused index slots
-hold ``n`` and value slots 0, as the reference fills them.
+hold ``n`` and value slots 0, as the reference fills them. Finding them is a
+``nonzero``, whose size the host reads: it counts one
+``fz_host_syncs{site=dual_quantize}``.
 """
 from __future__ import annotations
 
 import torch
 
+from ..obs import spans
+
 MAX_MAG = 0x7FFF   # largest |delta| a sign-magnitude u16 code carries
 SIGN_BIT = 0x8000
+_SYNC_SITE = {"site": "dual_quantize"}
 
 
 def lorenzo_delta(q: torch.Tensor) -> torch.Tensor:
@@ -105,6 +110,7 @@ def dual_quantize(data: torch.Tensor, eb: torch.Tensor, *,
     dev = codes.device
     if outlier_capacity > 0:
         hit = torch.nonzero(flat_over).reshape(-1)[:outlier_capacity]
+        spans.count("fz_host_syncs", _SYNC_SITE)
         idx = torch.full((outlier_capacity,), n, dtype=torch.int32, device=dev)
         val = torch.zeros(outlier_capacity, dtype=torch.int32, device=dev)
         idx[: hit.numel()] = hit.to(torch.int32)

@@ -19,12 +19,20 @@ Two routes, selected by ``FZConfig.kernel_mode`` (``core/fz.py``):
   plain stages they replace.
 
 Each stage runs under an ``fz.stage.<name>`` span with ``backend=``, as in
-the reference (an ``obs.spans.leaf``: a stage opens no span inside it); ``backend`` is ``"cuda"`` where the wrapper launches its
-kernel and ``"cpu"`` where it runs its plain version for a CPU tensor (the
-plain stages of ``core/fz.py`` say ``"reference"``). Deliberate difference:
-in the reference these spans run only while jax traces the enclosing fz jit
-(``cat="jit-trace"``, once a compilation); the port has no jit, so they are
-runtime spans, nested under the ``fz.*`` span of every call.
+the reference (an ``obs.spans.leaf``: a stage opens no span inside it);
+``backend`` is ``"cuda"`` where the wrapper launches its kernel and ``"cpu"``
+where it runs its plain version for a CPU tensor (the plain stages of
+``core/fz.py`` say ``"reference"``). The fused route's compress is
+``fz.stage.fused_compress`` (K4) in paper mode and, in strict mode, two
+leaves in turn: ``fz.stage.dual_quantize`` (the torch-op quantize and the
+outlier channel, with its ``nonzero`` wait) and
+``fz.stage.fused_shuffle_encode`` (the pad and K5); its decompress is
+``fz.stage.fused_decompress``. The staged route's are ``fz.stage.quantize``,
+``fz.stage.shuffle_encode`` and ``fz.stage.unshuffle``; ``core/fz.py`` adds
+``fz.stage.resolve_eb``. Deliberate difference: in the reference these spans
+run only while jax traces the enclosing fz jit (``cat="jit-trace"``, once a
+compilation); the port has no jit, so they are runtime spans, nested under
+the ``fz.*`` span of every call.
 
 On ``meta`` tensors (the dry-run's count) K4 and K6 are reached through two
 ``torch.library`` custom ops, ``repro_torch::fused_compress`` and
@@ -51,6 +59,12 @@ from .lorenzo_quant import lorenzo_quant
 
 __all__ = ["fused_compress_stages", "fused_decompress", "lorenzo_quantize",
            "bitshuffle_flag_encode", "bitshuffle", "bitunshuffle"]
+
+
+# the staged route's compaction reads its nonzero's size on the host: one
+# fz_host_syncs a call, counted by the stage (K4's and K5's plain versions
+# compact the same way for CPU tensors, where the kernels read nothing)
+COMPACT_SYNC_SITE = {"site": "compact_blocks"}
 
 
 def backend_label(t: torch.Tensor) -> str:
@@ -94,13 +108,16 @@ def _k6_shape(bitflags, payload, eb, shape, code_mode, outlier_idx, outlier_val)
 def fused_compress_stages(data: torch.Tensor, eb: torch.Tensor, *, code_mode: str,
                           capacity: int, outlier_capacity: int = 0):
     """-> (bitflags, payload, nnz, outlier_idx, outlier_val, n_over)."""
-    with spans.leaf("fz.stage.fused_compress", backend=backend_label(data)):
-        if outlier_capacity > 0:
+    backend = backend_label(data)
+    if outlier_capacity > 0:
+        with spans.leaf("fz.stage.dual_quantize", backend=backend):
             codes, oidx, oval, n_over = quant.dual_quantize(
                 data, eb, code_mode=code_mode, outlier_capacity=outlier_capacity)
+        with spans.leaf("fz.stage.fused_shuffle_encode", backend=backend):
             flat = shuffle.pad_to_tiles(codes.reshape(-1)).to(torch.uint16)
             bitflags, payload, nnz = fused_shuffle_encode(flat, capacity=capacity)
-            return bitflags, payload, nnz, oidx, oval, n_over
+        return bitflags, payload, nnz, oidx, oval, n_over
+    with spans.leaf("fz.stage.fused_compress", backend=backend):
         if data.is_meta:
             bitflags, payload, nnz = _k4(data, eb, capacity, code_mode)
         else:
@@ -143,9 +160,11 @@ def bitshuffle_flag_encode(codes_flat: torch.Tensor, *, capacity: int):
     with spans.leaf("fz.stage.shuffle_encode", backend=backend_label(codes_flat)):
         shuffled, byteflags = bitshuffle_flag(codes_flat.to(torch.uint16).reshape(-1, TILE))
         # int16 view: the same bits, and a type every device's gather takes
-        return enc.compact_blocks(byteflags.reshape(-1).to(torch.bool),
-                                  shuffled.view(torch.int16).reshape(-1, enc.BLOCK_WORDS),
-                                  capacity=capacity)
+        out = enc.compact_blocks(byteflags.reshape(-1).to(torch.bool),
+                                 shuffled.view(torch.int16).reshape(-1, enc.BLOCK_WORDS),
+                                 capacity=capacity)
+    spans.count("fz_host_syncs", COMPACT_SYNC_SITE)
+    return out
 
 
 def bitshuffle(codes_flat: torch.Tensor) -> torch.Tensor:

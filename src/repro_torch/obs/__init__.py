@@ -2,7 +2,7 @@
 of ``repro.obs``, with the same public names.
 
 One layer that the port's subsystems (core FZ, the kernel routes, the kvpool,
-the engine, the launcher) report into. Four pieces:
+the engine, the launcher) report into. Five pieces:
 
   * :mod:`registry`  — counters / gauges / log-bucketed histograms, labeled,
     process-wide, snapshot-able to a plain dict (``obs.snapshot()``);
@@ -12,7 +12,10 @@ the engine, the launcher) report into. Four pieces:
     the same names appear in ``torch.profiler`` and Nsight traces of the card;
   * :mod:`trace`     — exporters: Chrome ``trace_event`` JSON and JSONL;
   * :mod:`sentinels` — always-on health monitors (error-bound violations,
-    ratio drift, scheduler starvation) behind ``obs.assert_healthy()``.
+    ratio drift, scheduler starvation) behind ``obs.assert_healthy()``;
+  * :mod:`gcpause`   — a ``gc.callbacks`` hook, installed on import: each
+    Python collection in ``gc_pause_ms{gen=}`` and ``gc_collections{gen=}``,
+    and under a ``torch.profiler`` capture a ``py.gc`` range (no ring event).
 
 How to read a StepReport
 ------------------------
@@ -31,7 +34,17 @@ graph was captured (or ``torch.compile`` traced): they ran no work
 themselves. On the card add ``--profile-dir DIR`` for a ``torch.profiler``
 Chrome trace: the span names appear there as ``record_function`` ranges, and
 each kernel's launch falls inside the range of the span that issued it, which
-is where device time per region is read (spans record host time only).
+is where device time per region is read (spans record host time only); a
+Python collection shows there as a ``py.gc`` range.
+
+Both files are on one clock, the Unix epoch: an event's time is its ``ts``
+(microseconds) plus the document's ``baseTimeNanoseconds`` (the obs
+exporters write the key as kineto does; JSONL ``ts`` counts from the epoch
+itself). To overlay them, move each file's events onto one base (add its
+``baseTimeNanoseconds`` / 1e3 to every ``ts``, subtract the other's) and merge
+the ``traceEvents`` lists into one document, keeping the obs events' ``pid``
+apart from the profiler's; the spans' host ranges then lie over the
+profiler's ``record_function`` ranges of the same names.
 
 What each sentinel means
 ------------------------
@@ -58,16 +71,27 @@ the entropy stage and which tier asked (``kv_cold_entropy``, or ``adhoc``
 for untiered calls). The serializers do not feed the ratio EWMAs; the pool
 samples ``note_ratio`` inside its sentinel check.
 
+FZ call counters
+----------------
+Each fz entry point counts ``fz_dispatches{op,path}`` once a call. The fz
+path's host reads of device values count in ``fz_host_syncs{site=...}``:
+``used_bytes`` (two a ``FZCompressed.used_bytes()``), ``dual_quantize``
+(strict mode's ``nonzero``) and ``compact_blocks`` (the ``nonzero`` of the
+staged and plain routes' compaction); the sites are those the host-sync
+lint's baseline names. A fused paper compress and its size read count 2, a
+strict one 3, a staged strict one 4.
+
 Hot-path discipline: no span, counter or histogram reads a device value, so
 telemetry adds no synchronisation; the one sync it adds is the pool's sampled
 sentinel check (the first park, then every 16th). Spans entered during a CUDA
 graph capture record no runtime state (see :mod:`spans`). The paths it wraps
-are host-bound on the card, so spans and the fz dispatch accounting queue
-their bookkeeping (``registry._queued``), applied before the next read of the
-registry or the ring. ``obs.disabled()`` suspends all recording —
-``chip_smoke.py`` uses it to pin the instrumentation overhead of a
-compressor round trip under 5%.
+are host-bound on the card, so spans, the fz dispatch and sync counts and the
+GC hook queue their bookkeeping (``registry._queued``), applied before the
+next read of the registry or the ring. ``obs.disabled()`` suspends all
+recording — ``chip_smoke.py`` uses it to pin the instrumentation overhead of
+a compressor round trip under 5%.
 """
+from . import gcpause  # noqa: F401  (installs the GC hook)
 from .registry import (DEFAULT, Registry, counter, disabled, enabled,  # noqa: F401
                        gauge, histogram, reset, set_enabled, snapshot)
 from .report import StepReport, step_report  # noqa: F401

@@ -39,7 +39,12 @@ depth and parent span name, and the stack is restored on exit even under
 reentrancy or exceptions. A span's exit only queues its metrics and event
 (``registry._queued``), applied before the next read of the registry or the
 ring: on the card's host-bound paths every Python operation of a span shows
-in the time of the call it wraps.
+in the time of the call it wraps. :func:`count` queues a counter's increment
+the same way.
+
+Events are stamped with ``time.perf_counter_ns``; the exporters of
+``obs.trace`` move them onto the Unix-epoch clock of ``torch.profiler``'s
+traces.
 """
 from __future__ import annotations
 
@@ -147,6 +152,16 @@ def trace_time() -> bool:
 
 # True while a torch.profiler (or autograd profiler) capture runs
 _profiling = torch._C._autograd._profiler_enabled
+
+
+def count(name: str, labels: dict, n: int = 1) -> None:
+    """``counter(name, **labels).inc(n)`` queued (``registry._queued``), as a
+    span's exit queues its metrics: nothing while recording is off or at
+    trace time. The fz path's host syncs count here (``fz_host_syncs``)."""
+    if _reg._enabled and not trace_time():
+        _queued.append((_reg.add_now, (name, labels, n)))
+        if len(_queued) >= _reg.QUEUE_LIMIT:
+            _reg.apply_deferred()
 
 
 _PLAIN = frozenset((bool, int, float, str, type(None)))

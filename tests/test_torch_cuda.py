@@ -504,6 +504,33 @@ def test_span_around_k4_records_its_event_and_adds_no_sync(cuda):
         obs.clear_events()
 
 
+@pytest.mark.parametrize("strict", [False, True], ids=["paper", "strict"])
+def test_fz_host_syncs_count_the_cards_syncs(cuda, strict):
+    """``fz_host_syncs`` counts what ``set_sync_debug_mode`` reports of a
+    compress and its size read (paper: ``used_bytes``'s two reads; strict: and
+    ``dual_quantize``'s ``nonzero``), and the spans, counters and GC hook add
+    no sync (on == off)."""
+    from repro_torch import obs
+    obs.reset()
+    obs.clear_events()
+    try:
+        x = _field((70000,) if strict else (9, 33, 70)).to(cuda)
+        cfg = FZConfig(eb=1e-5) if strict else FZConfig(exact_outliers=False)
+        call = lambda: compress(x, cfg).used_bytes()     # noqa: E731
+        call()
+        obs.reset()
+        on = _syncs(call)
+        counted = sum(v for k, v in obs.snapshot()["counters"].items()
+                      if k.startswith("fz_host_syncs{"))
+        assert counted == on == (3 if strict else 2)
+        with obs.disabled():
+            off = _syncs(call)
+        assert on == off
+    finally:
+        obs.reset()
+        obs.clear_events()
+
+
 def test_span_in_a_cuda_graph_capture_records_only_a_trace_time_event(cuda):
     from repro_torch import obs
     from repro_torch.obs import spans

@@ -298,7 +298,7 @@ def test_fz_entry_points_count_nothing_at_trace_time(monkeypatch):
     assert not any(k.startswith(("fz_dispatches", "span_calls")) for k in snap)
     assert snap["span_traces{span=fz.compress}"] == snap["span_traces{span=fz.decompress}"] == 1
     evs = spans.events()
-    assert {e["name"] for e in evs} == {"fz.compress", "fz.decompress",
+    assert {e["name"] for e in evs} == {"fz.compress", "fz.decompress", "fz.stage.resolve_eb",
                                         "fz.stage.fused_compress", "fz.stage.fused_decompress"}
     assert all(e["cat"] == "jit-trace" for e in evs)
     monkeypatch.undo()
@@ -554,9 +554,12 @@ def test_sentinels_equal_the_reference():
         jobs.sentinels.configure(old[1])
 
 
-def test_exporters_equal_the_reference():
+def test_exporters_equal_the_reference(monkeypatch):
     # one event list, recorded by the port's spans; one registry, filled by
-    # the op stream plus those spans
+    # the op stream plus those spans. The port's document is the reference's
+    # on the Unix-epoch clock: each ts moved by the epoch time of
+    # perf_counter's zero past the whole-second base the document declares
+    from repro_torch.obs import trace
     with obs.span("engine.serve", requests=3):
         with obs.span("sched.step", step=1):
             with obs.span("kvpool.park", pages=2):
@@ -564,8 +567,16 @@ def test_exporters_equal_the_reference():
     events = spans.events() + [{"name": "fz.stage.x", "cat": "jit-trace", "ts": 1.5,
                                 "dur": 0.25, "pid": 1, "tid": 2}]
     meta = {"arch": "yi-6b", "device": "cuda:0"}
-    assert obs.chrome_trace(events, meta) == jobs.chrome_trace(events, meta)
-    assert obs.chrome_trace(events) == jobs.chrome_trace(events)
+    zero = 1_790_000_123_456_789_000
+    monkeypatch.setattr(trace, "_epoch_ns", lambda: zero)
+
+    def on_epoch(doc):
+        for e in doc["traceEvents"]:
+            if e["ph"] == "X":
+                e["ts"] += 456_789.0
+        return {**doc, "baseTimeNanoseconds": 1_790_000_123_000_000_000}
+    assert obs.chrome_trace(events, meta) == on_epoch(jobs.chrome_trace(events, meta))
+    assert obs.chrome_trace(events) == on_epoch(jobs.chrome_trace(events))
 
     ours, theirs = obs.Registry(), jobs.Registry()
     ops = _op_stream(3, 500) + [("observe", "span_ms", {"span": "dist.bucket0_reduce"}, 2.5),

@@ -195,10 +195,16 @@ def test_span_nesting_on_real_path(served):
     for n in pool_spans:
         assert parents[n] <= {"sched.step", "kvpool.gather"}, (n, parents[n])
     assert "sched.step" in parents["kvpool.gather"]
-    # fz wrapper spans nest under the pool spans that issued them
+    # fz wrapper spans nest under the pool spans that issued them; the pool's
+    # size reads (its high-water bytes) are the fz.used_bytes leaves, two
+    # host syncs each
     fz_spans = {n for n in parents if n.startswith("fz.") and not n.startswith("fz.stage")}
-    fz_parents = set().union(*(parents[n] for n in fz_spans))
+    assert fz_spans == {"fz.compress", "fz.compress_batch", "fz.decompress",
+                        "fz.decompress_batch", "fz.used_bytes"}
+    fz_parents = set().union(*(parents[n] for n in fz_spans - {"fz.used_bytes"}))
     assert fz_parents & {"kvpool.park", "kvpool.cold_read"}
+    size_reads = [e for e in events if e["name"] == "fz.used_bytes"]
+    assert 2 * len(size_reads) == snap["counters"]["fz_host_syncs{site=used_bytes}"]
     # the port has no jit: stage spans run at runtime, under the fz span of
     # every metered call, labeled with where they ran (the plain versions:
     # "cpu"); the sentinel's unmetered decode runs its stage right under the
