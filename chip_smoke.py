@@ -19,12 +19,17 @@ Phases (each prints its own lines):
   2. hold every kernel against its plain PyTorch version on the card, bit
      for bit, at the main path's shapes and at small odd shapes, float32 and
      bfloat16, both code modes: K1 lorenzo_quant, K2 bitshuffle_flag and K3
-     bitunshuffle_tiles (the staged route), K4 fused_compress, K5
-     fused_shuffle_encode and K6 fused_decompress (the fused route; payload
-     capacity 1.0 and 0.25); K6 at its edge shapes (rows longer than a
+     bitunshuffle_tiles (the staged route), K4 fused_compress, strict K4
+     fused_compress_strict (K4 with the exact outlier channel, against
+     ``dual_quantize`` + K5's plain version), K5 fused_shuffle_encode (off
+     the routes since strict K4, held on the codes of ``dual_quantize``) and
+     K6 fused_decompress (the fused route; payload capacity 1.0 and 0.25);
+     strict K4 also at rel eb 1e-5 and 1e-6 on the 1-D HACC-like field, whose
+     overflows fill and then pass its channel; K6 at its edge shapes (rows longer than a
      tile, rows of one element, the serving page) with outlier slots in no
-     order, repeated, at the fill index n, and overflowing a tile's bin; K4
-     and K5 at the shapes that reach every layout of K4's neighbour windows
+     order, repeated, at the fill index n, and overflowing a tile's bin; K4,
+     strict K4 (at a bound whose overflows pass the channel) and K5 at the
+     shapes that reach every layout of K4's neighbour windows
      and at the serving page, float32 and bfloat16, both code modes,
      capacity 1.0 and 0.25, the data at its own allocation and 3 elements
      past a 16-byte boundary; K1 at those shapes and at the edges of its walk
@@ -47,15 +52,16 @@ Phases (each prints its own lines):
   4. the card's containers and reconstructions against the CPU path's at
      (100, 500, 500), bit for bit, and on non-finite and out-of-range inputs
      ([1, nan, inf, -inf, 3e38]: NaN quantizes to 0, the rest saturate),
-     strict mode (torch's own CUDA cast) and paper mode (K4);
+     strict mode (strict K4) and paper mode (K4);
   5. the kernels' launch counts on each path of phases 3 and 3b (counts set
      to 0 just before each path's calls and read just after), each kernel
      above 0 on its path;
   6. CUDA-event times at (100, 500, 500): each kernel, its plain version and
-     its bound (K4 and K5 write their whole capacity-sized payload, so their
-     bound counts it); K5 also at a quarter capacity, one tile and one wave
-     plus a tile; compress/decompress GB/s and ratio of the fused, staged and
-     plain routes;
+     its bound (K4, strict K4 and K5 write their whole capacity-sized
+     payload, so their bound counts it); strict K4 also at the HACC field's
+     size (280,953,867 float32, rel eb 1e-5); K5 also at a quarter capacity,
+     one tile and one wave plus a tile; compress/decompress GB/s and ratio of
+     the fused, staged and plain routes;
   7. K7 flash-decode against its plain version (the same split of the pages
      and combine) on the card at 2e-4 (float32 sums in another order): the
      serving geometry (KVH 4, G 8, D 128, pages of 64, bfloat16, 4 lanes,
@@ -175,11 +181,11 @@ Phases (each prints its own lines):
      partials combined by ``combine_shards`` within 2e-4 of the plain
      attention, and the whole cache as one shard on NCCL equal to the
      collective-free combine. A ``codec="fz"`` checkpoint of layer 0 of the
-     reduced tree (173,023,232 float32 elements; K5 to save, K6 to restore)
+     reduced tree (173,023,232 float32 elements; strict K4 to save, K6 to restore)
      plus a bfloat16 leaf: save and restore seconds with the host entropy
      stage split out, ``compression_report``'s ratio, max_err/eb within the
      bound, the bf16 leaf exact, the wk leaf's file equal to the CPU port's.
-     Each path's launches of K4, K5, K6 and K7 are counted and must be above 0
+     Each path's launches of K4, strict K4, K6 and K7 are counted and must be above 0
      where the path runs them; the ``kernels`` JSON gives each kernel's phase-14
      launches as ``wire_launches``;
   15. training (``repro_torch.train``, ``optim``, ``launch``), after phase 14
@@ -206,13 +212,13 @@ Phases (each prints its own lines):
      ran beside the main stream) and the peak allocated memory (limit 70 GB).
      Every step launches K4 and K6 once a leaf past ``min_leaf_size``, the
      plain route none. At the smoke size on the same mesh: 4 steps, a restart
-     and 2 more equal 6 steps bit for bit (raw codec); with ``codec="fz"`` (K5
-     to save, K6 to restore) every FZ leaf equals the plain route's round trip
+     and 2 more equal 6 steps bit for bit (raw codec); with ``codec="fz"`` (strict
+     K4 to save, K6 to restore) every FZ leaf equals the plain route's round trip
      bit for bit and is counted within or past its bound (only error-state
      leaves may pass it; the CPU tests show the reference's round trip passes
      it there too). The launcher (``python -m repro_torch.launch.train --arch
      yi-6b --smoke --ckpt-codec fz``, its ``main`` in this process so that
-     its K5/K6 launches count), 4 steps then 6 on one ``--ckpt-dir``: the
+     its strict K4/K6 launches count), 4 steps then 6 on one ``--ckpt-dir``: the
      reference's line format, the second at ``resume_step=4``. Every line of the phase but the launch counts starts
      with the card's name and power limit; the ``kernels`` JSON gives each
      kernel's launches over the phase as ``train_launches``.
@@ -275,13 +281,13 @@ Phases (each prints its own lines):
   18. the package surface's entry points and the analysis passes, after phase
      17: (a) the four examples (``repro_torch.examples``) in-process at their own
      sizes through their ``main``: quickstart at (128, 128, 64) (the staged
-     route's K1-K3 and the default route's K5/K6), compress_field at its
-     default and at the 512^3 turbulent field (K5/K6; its CR column equal to
+     route's K1-K3 and the default route's strict K4/K6), compress_field at its
+     default and at the 512^3 turbulent field (strict K4/K6; its CR column equal to
      the plain route's on the card digit for digit), serve_compressed_kv's full
      mode with ``--kernels`` (K4, K6, K7) and without (no launch; identical
      scheduling counts, tokens agreeing as phase 8's bar), and train_lm (~65M
      parameters) killed at step 55 of 60 and relaunched to 70 in the same
-     checkpoint directory (resumed at step 50; K5 saves, K6 restores). Each
+     checkpoint directory (resumed at step 50; strict K4 saves, K6 restores). Each
      example's own asserts hold and each kernel of its path launched; wall
      times printed; the ``kernels`` JSON gives each kernel's launches on each
      example as ``example_launches``. (b) ``python -m repro_torch.analysis
@@ -349,14 +355,19 @@ FP32_OPS_PER_S = 67e12        # H100 SXM non-tensor float32 rate (NVIDIA data sh
 
 # Scalar operations per code the function itself needs (not the kernel's
 # redundant neighbour work): K1 divide + round + Lorenzo + code; K2 shuffle
-# bits + flag; K3 unshuffle bits; K4 = K1 + K2; K5 = K2; K6 unshuffle + code +
-# prefix sums + dequantize. Far below the byte bound at every shape used here.
+# bits + flag; K3 unshuffle bits; K4 = K1 + K2; strict K4 = K4 + the overflow
+# test; K5 = K2; K6 unshuffle + code + prefix sums + dequantize. Far below the
+# byte bound at every shape used here.
 OPS_PER_CODE = {"lorenzo_quant": 12, "bitshuffle_flag": 20, "bitunshuffle_tiles": 16,
-                "fused_compress": 32, "fused_shuffle_encode": 20, "fused_decompress": 24}
+                "fused_compress": 32, "fused_compress_strict": 36, "fused_shuffle_encode": 20,
+                "fused_decompress": 24}
+# the path each kernel runs on (K5 was the fused path's strict stage; strict
+# K4 replaced it there, so phase 5 asserts it no longer launches; phase 2 holds it)
 KERNEL_PATH = {"lorenzo_quant": "staged", "bitshuffle_flag": "staged",
                "bitunshuffle_tiles": "staged", "fused_compress": "fused",
-               "fused_shuffle_encode": "fused", "fused_decompress": "fused",
-               "flash_decode": "serving"}
+               "fused_compress_strict": "fused", "fused_shuffle_encode": "fused",
+               "fused_decompress": "fused", "flash_decode": "serving"}
+OFF_PATH = {"fused_shuffle_encode"}
 K7_TOL = 2e-4              # K7 vs its plain version: float32 sums in another order
 # K7 cases: B, H, KVH, D, pages P (or slice length S), page size (0: the
 # contiguous entry), dtype, lengths, kv_tile, shard_offset
@@ -488,18 +499,18 @@ RECURRENT_TRAIN_STEPS = 2
 RECURRENT_RANGES = (("rwkv6", "_wkv_chunked"), ("mamba2", "_ssd_chunked"), ("mamba2", "_conv"))
 # phase 18: the four examples at their own sizes, each with the kernels it must
 # launch on the card (the defaults: strict mode, so quickstart's bounds and
-# compress_field run K5/K6; quickstart's kernel path is the staged route; the
-# serving example parks cold pages in paper mode through K4; train_lm's FZ
-# checkpoints save through K5 and restore through K6)
+# compress_field run strict K4/K6; quickstart's kernel path is the staged route;
+# the serving example parks cold pages in paper mode through K4; train_lm's FZ
+# checkpoints save through strict K4 and restore through K6)
 EXAMPLE_PATHS = {
     "quickstart": ("lorenzo_quant", "bitshuffle_flag", "bitunshuffle_tiles",
-                   "fused_shuffle_encode", "fused_decompress"),
-    "compress_field": ("fused_shuffle_encode", "fused_decompress"),
-    "compress_field turbulent 512^3": ("fused_shuffle_encode", "fused_decompress"),
+                   "fused_compress_strict", "fused_decompress"),
+    "compress_field": ("fused_compress_strict", "fused_decompress"),
+    "compress_field turbulent 512^3": ("fused_compress_strict", "fused_decompress"),
     "serve_compressed_kv --kernels": ("fused_compress", "fused_decompress", "flash_decode"),
     "serve_compressed_kv": (),
-    "train_lm": ("fused_shuffle_encode",),
-    "train_lm resumed": ("fused_shuffle_encode", "fused_decompress"),
+    "train_lm": ("fused_compress_strict",),
+    "train_lm resumed": ("fused_compress_strict", "fused_decompress"),
 }
 EXAMPLE_FIELDS = (("compress_field", "wavefront", (128, 128, 64)),   # its default
                   ("compress_field turbulent 512^3", "turbulent", (512, 512, 512)))
@@ -1095,10 +1106,8 @@ def paper_comparison(card, dev, fields, cuda_ms, device_ms) -> None:
                                          f"max_err/eb {err / eb_abs:.6f}")
                 c_ms = cuda_ms(lambda: rt.compress(x, cfg), iters=5)
                 d_ms = cuda_ms(lambda: rt.decompress(c, cfg), iters=5)
-                # card-only times where the call never waits on the card (strict
-                # compress reads the outlier count)
-                card_c = (f"{raw / device_ms(lambda: rt.compress(x, cfg), iters=5) / 1e6:.1f}"
-                          if not exact else "not isolated")
+                # card-only times: neither mode's compress waits on the card
+                card_c = f"{raw / device_ms(lambda: rt.compress(x, cfg), iters=5) / 1e6:.1f}"
                 card_d = raw / device_ms(lambda: rt.decompress(c, cfg), iters=5) / 1e6
                 ssim = (f", SSIM (middle plane) {metrics.ssim2d(x[mid], y[mid]):.6f}"
                         if x.ndim == 3 else "")
@@ -1755,7 +1764,7 @@ def wire_phase(card, dev) -> dict:
             "bucketed": ("fused_compress", "fused_decompress"),
             "nccl": ("fused_compress", "fused_decompress"),
             "shard": ("flash_decode",),
-            "checkpoint": ("fused_shuffle_encode", "fused_decompress")}
+            "checkpoint": ("fused_compress_strict", "fused_decompress")}
     for path, names in need.items():
         for name in names:
             if launches[path][name] <= 0:
@@ -2150,7 +2159,7 @@ def train_phase(card, dev) -> dict:
             if any(not k.startswith("['err']") for k in past):
                 raise AssertionError(f"fz restore: a leaf other than the error state past its "
                                      f"bound: {past}")
-        for name in ("fused_compress", "fused_shuffle_encode", "fused_decompress"):
+        for name in ("fused_compress", "fused_compress_strict", "fused_decompress"):
             if launches["resume"][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the resume path")
         log(f"resume at {scfg.arch_id} ({sshape}) on the same pod mesh: 4 steps + restart + "
@@ -2193,9 +2202,9 @@ def train_phase(card, dev) -> dict:
         log(f"launches on the {path} path: {counts}")
     for path, names in (("train", ("fused_compress", "fused_decompress")),
                         ("overlap", ("fused_compress", "fused_decompress")),
-                        ("resume", ("fused_compress", "fused_shuffle_encode",
+                        ("resume", ("fused_compress", "fused_compress_strict",
                                     "fused_decompress")),
-                        ("launcher", ("fused_shuffle_encode", "fused_decompress"))):
+                        ("launcher", ("fused_compress_strict", "fused_decompress"))):
         for name in names:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")
@@ -3512,8 +3521,14 @@ def main() -> int:
                     args = dict(shape=tuple(x.shape), code_mode=code_mode)
                     hold("fused_decompress", kernels.fused_decompress(k4[0], k4[1], eb, **args),
                          ref.fused_decompress_ref(k4[0], k4[1], eb, **args), what)
-                    if dtype == torch.float32:      # the strict route: codes + outliers
-                        ocap = rt.FZConfig().outlier_capacity(x.numel())
+                    ocap = rt.FZConfig().outlier_capacity(x.numel())
+                    hold("fused_compress_strict",
+                         kernels.fused_compress_strict(x, eb, capacity=cap, outlier_capacity=ocap,
+                                                       code_mode=code_mode),
+                         ref.fused_compress_strict_ref(x, eb, capacity=cap,
+                                                       outlier_capacity=ocap,
+                                                       code_mode=code_mode), what)
+                    if dtype == torch.float32:      # K5 on the codes of the strict route
                         codes, oidx, oval, _ = quant.dual_quantize(
                             x, eb, code_mode=code_mode, outlier_capacity=ocap)
                         flat = shuffle.pad_to_tiles(codes.reshape(-1)).to(torch.uint16)
@@ -3527,8 +3542,31 @@ def main() -> int:
                                                       outlier_val=oval, **args), what)
                     cases += 1
         torch.cuda.synchronize()
-    say(2, f"K1-K6 bit-identical to their plain versions in {cases} cases "
+    say(2, f"K1-K6 and strict K4 bit-identical to their plain versions in {cases} cases "
            f"({time.time() - t0:.1f} s); max |kernel - plain|: {max_err}")
+    # strict K4 on the 1-D HACC-like field at bounds whose overflows fill part
+    # of the channel (rel 1e-5, the checkpoint codec's) and pass it (rel 1e-6:
+    # the first K kept)
+    t0 = time.time()
+    x = fields[MAIN_FIELDS[2][0]]
+    overflowed = []
+    for eb_rel in (1e-5, 1e-6):
+        eb = rt.resolve_eb(x, rt.FZConfig(eb=eb_rel))
+        ocap = rt.FZConfig().outlier_capacity(x.numel())
+        cap = rt.FZConfig().payload_capacity(x.numel())
+        for code_mode in ("sign_mag", "zigzag"):
+            got = kernels.fused_compress_strict(x, eb, capacity=cap, outlier_capacity=ocap,
+                                                code_mode=code_mode)
+            hold("fused_compress_strict", got,
+                 ref.fused_compress_strict_ref(x, eb, capacity=cap, outlier_capacity=ocap,
+                                               code_mode=code_mode),
+                 f"{MAIN_FIELDS[2][0]} rel eb {eb_rel} {code_mode}")
+            overflowed.append((eb_rel, code_mode, int(got[5]), ocap))
+    if not any(n_over > ocap for _, _, n_over, ocap in overflowed):
+        raise AssertionError(f"no strict K4 case passed its outlier channel: {overflowed}")
+    say(2, f"strict K4 bit-identical to its plain version on {MAIN_FIELDS[2][0]} "
+           f"{tuple(x.shape)}: (rel eb, code mode, overflows, channel slots) {overflowed} "
+           f"({time.time() - t0:.1f} s)")
     t0 = time.time()
     k6_cases = 0
     for shape in K6_EDGE_SHAPES:
@@ -3580,6 +3618,16 @@ def main() -> int:
                         hold("fused_shuffle_encode",
                              kernels.fused_shuffle_encode(flat, capacity=cap),
                              ref.fused_shuffle_encode_ref(flat, capacity=cap), what)
+                        ocap = rt.FZConfig().outlier_capacity(x.numel())
+                        tight = eb * 1e-3
+                        hold("fused_compress_strict",
+                             kernels.fused_compress_strict(x, tight, capacity=cap,
+                                                           outlier_capacity=ocap,
+                                                           code_mode=code_mode),
+                             ref.fused_compress_strict_ref(x, tight, capacity=cap,
+                                                           outlier_capacity=ocap,
+                                                           code_mode=code_mode),
+                             what + " rel eb 1e-6")
                         k4_cases += 1
     rng = np.random.default_rng(5)
     for n_tiles in K3_TILE_COUNTS:
@@ -3621,7 +3669,8 @@ def main() -> int:
            f"wave: {wave} CTAs), capacity 1.0 and 0.25 (nnz past the capacity there), own "
            f"allocation and 3 elements off 16 bytes, in {k5_cases} cases; {landed} payloads "
            f"landed on a freed block of 0xFFFF")
-    say(2, f"K4 and K5 bit-identical to their plain versions at {K4_EDGE_SHAPES} in {k4_cases} "
+    say(2, f"K4, strict K4 (rel eb 1e-6) and K5 bit-identical to their plain versions at "
+           f"{K4_EDGE_SHAPES} in {k4_cases} "
            f"cases each (float32 and bfloat16, own allocation and 3 elements off 16 bytes, both "
            f"code modes, capacity 1.0 and 0.25); K1 there and at its walk's edge shapes "
            f"{K1_WALK_SHAPES} in {k1_cases} cases (the same dtypes, places and code modes); K2 "
@@ -3780,7 +3829,10 @@ def main() -> int:
         if KERNEL_PATH[name] == "serving":
             continue                      # phase 8
         count = path_launches[KERNEL_PATH[name]][name]
-        if count <= 0:
+        if name in OFF_PATH and count != 0:
+            raise AssertionError(f"{name} was launched {count} times on the "
+                                 f"{KERNEL_PATH[name]} path, which no longer runs it")
+        if name not in OFF_PATH and count <= 0:
             raise AssertionError(f"{name} was not launched on the {KERNEL_PATH[name]} path")
     if path_launches["cold and batch"]["fused_decompress"] <= 0:
         raise AssertionError("decompress_bytes did not launch fused_decompress")
@@ -3845,9 +3897,10 @@ def main() -> int:
     bf, payload, nnz = kernels.fused_shuffle_encode(flat, capacity=cap)
     used = min(int(nnz), cap) * 16
     flag_bytes = bf.numel() * 4
-    # K4 and K5 write their whole capacity-sized payload, zero past nnz (the TPU
-    # kernels zero it in their body, repro/kernels/fused_compress.py:306); K6
-    # reads only the used part
+    # K4, strict K4 and K5 write their whole capacity-sized payload, zero past
+    # nnz (the TPU kernels zero it in their body,
+    # repro/kernels/fused_compress.py:306); K6 reads only the used part. Strict
+    # K4 also writes its outlier channel (8 bytes a slot) and the overflow count
     payload_bytes = cap * 16
     tiles = shuffle.pad_to_tiles(kernels.lorenzo_quant(x, eb).reshape(-1)).reshape(
         -1, shuffle.TILE)
@@ -3870,6 +3923,10 @@ def main() -> int:
             lambda: kernels.fused_compress(x, eb, capacity=cap),
             lambda: ref.fused_compress_ref(x, eb, capacity=cap),
             n * 4 + flag_bytes + payload_bytes + 4),
+        "fused_compress_strict": (
+            lambda: kernels.fused_compress_strict(x, eb, capacity=cap, outlier_capacity=ocap),
+            lambda: ref.fused_compress_strict_ref(x, eb, capacity=cap, outlier_capacity=ocap),
+            n * 4 + flag_bytes + payload_bytes + 8 * ocap + 8),
         "fused_shuffle_encode": (
             lambda: kernels.fused_shuffle_encode(flat, capacity=cap),
             lambda: ref.fused_shuffle_encode_ref(flat, capacity=cap),
@@ -3885,6 +3942,7 @@ def main() -> int:
                "bitshuffle_flag": ("fz_staged.cu", "bitshuffle_flag.py:86"),
                "bitunshuffle_tiles": ("fz_staged.cu", "bitshuffle_flag.py:109"),
                "fused_compress": ("fz_compress.cu", "fused_compress.py:246"),
+               "fused_compress_strict": ("fz_compress.cu", "ops.py:127"),
                "fused_shuffle_encode": ("fz_compress.cu", "fused_compress.py:324"),
                "fused_decompress": ("fz_decompress.cu", "fused_decode.py:153")}
     rows = []
@@ -3904,6 +3962,26 @@ def main() -> int:
                      "launches": path_launches[KERNEL_PATH[name]][name],
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    # strict K4 at the HACC field's size (the particle proxy drawn on the card,
+    # rel eb 1e-5, the default channel): the strict benchmark cell's kernel
+    hacc_n = 280_953_867
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xh = torch.log1p(torch.exp(2.0 * torch.randn(hacc_n, generator=gen, device=dev)))
+    hcfg = rt.FZConfig(eb=1e-5)
+    ebh = rt.resolve_eb(xh, hcfg)
+    caph, ocaph = hcfg.payload_capacity(hacc_n), hcfg.outlier_capacity(hacc_n)
+    k4s = lambda: kernels.fused_compress_strict(xh, ebh, capacity=caph,  # noqa: E731
+                                                outlier_capacity=ocaph)
+    n_over_h = int(k4s()[5])
+    nbytes_h = (hacc_n * 4 + -(-hacc_n // shuffle.TILE) * 64 + caph * 16 + 8 * ocaph + 8)
+    bound_h = nbytes_h / HBM_BYTES_PER_S * 1e3
+    ms_h = device_ms(k4s)
+    say(6, f"{card} | fused_compress_strict at the HACC field ({hacc_n} float32, particle "
+           f"proxy, rel eb 1e-5): {ms_h:.4f} ms on the card, {n_over_h} overflows of "
+           f"{ocaph} slots, bound {bound_h:.4f} ms by bytes ({nbytes_h / 1e6:.1f} MB), "
+           f"{100 * bound_h / ms_h:.1f}% of bound")
+    say(6, f"{card} | fused_compress_strict per call at the HACC field: {breakdown(k4s)}")
+    del xh, k4s
     # K5 at its tail cases: a quarter capacity (short of nnz: no tail), one
     # tile, one wave plus a tile
     k5_tail = [(f"{TIMING_SHAPE} capacity 0.25", flat,
@@ -3929,10 +4007,10 @@ def main() -> int:
             c = rt.compress(x, c_cfg)
             c_ms = cuda_ms(lambda: rt.compress(x, c_cfg), iters=10)
             d_ms = cuda_ms(lambda: rt.decompress(c, c_cfg), iters=10)
-            # card-only times where the route never waits on the card (strict
-            # mode's outlier channel and the staged compaction call nonzero)
+            # card-only times where the route never waits on the card (the
+            # staged route's compaction and its strict quantize call nonzero)
             card_c = (f" (card {device_ms(lambda: rt.compress(x, c_cfg), iters=10):.3f} ms)"
-                      if route == "fused" and not exact else "")
+                      if route == "fused" else "")
             card_d = (f" (card {device_ms(lambda: rt.decompress(c, c_cfg), iters=10):.3f} ms)"
                       if route != "plain" else "")
             if route != "plain":

@@ -160,6 +160,8 @@ HOT: tuple[tuple[str, str], ...] = (
     ("repro_torch/kernels/ops.py", "bitshuffle_flag_encode"),
     ("repro_torch/kernels/ops.py", "bitunshuffle"),
     ("repro_torch/kernels/fused_compress.py", "fused_compress"),
+    ("repro_torch/kernels/fused_compress.py", "fused_compress_strict"),
+    ("repro_torch/kernels/fused_compress.py", "_check_data"),
     ("repro_torch/kernels/fused_compress.py", "fused_shuffle_encode"),
     ("repro_torch/kernels/fused_compress.py", "_outputs"),
     ("repro_torch/kernels/fused_decode.py", "fused_decompress"),

@@ -16,8 +16,8 @@ Contract:
     the error-bounded compressor with exact outliers on (the paper's
     GPU-to-disk use case, §2.4), as float32 (the container header says
     float32, as the reference casts), serialized with ``to_bytes(entropy="auto",
-    tier="ckpt")``. The compressor runs on the card (strict mode: the plain
-    ``dual_quantize`` then K5); only the container's bytes move to the host.
+    tier="ckpt")``. The compressor runs on the card (strict mode: strict K4,
+    one launch); only the container's bytes move to the host.
     Restore decodes with ``decompress_bytes`` (K6 on the card), which also
     reads the headerless pre-v1 stream. The whole checkpoint's ratio feeds
     the ``ckpt`` tier of ``obs.note_ratio``.

@@ -9,8 +9,8 @@ byte container of ``docs/CONTAINER_FORMAT.md`` is the cold form
 Three routes, bit-identical in containers and reconstructions:
 
 * ``use_kernels=True`` (the port's default), ``kernel_mode="fused"``: the
-  fused kernels (``kernels/ops.py``) -- K4 in paper mode, plain
-  ``dual_quantize`` + K5 in strict mode, K6 to decompress.
+  fused kernels (``kernels/ops.py``) -- K4 in paper mode, strict K4 (K4
+  with the exact outlier channel) in strict mode, K6 to decompress.
 * ``use_kernels=True``, ``kernel_mode="staged"``: one kernel per stage, as
   ``repro/core/fz.py:_stages`` picks them -- K1 (paper mode) or plain
   ``dual_quantize`` (strict mode), K2 + torch-op compaction, and K3 to

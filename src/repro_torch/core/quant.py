@@ -12,7 +12,9 @@ With ``outlier_capacity`` K > 0 the first K overflowing deltas, in flat order,
 keep their exact int32 residual against their flat index; unused index slots
 hold ``n`` and value slots 0, as the reference fills them. Finding them is a
 ``nonzero``, whose size the host reads: it counts one
-``fz_host_syncs{site=dual_quantize}``.
+``fz_host_syncs{site=dual_quantize}``. The fused route's strict K4
+(``kernels.fused_compress_strict``) writes the same channel on the card
+without it.
 """
 from __future__ import annotations
 

@@ -170,6 +170,29 @@ __device__ __forceinline__ unsigned to_code(int d, int zigzag) {
   return static_cast<unsigned>(min(z, 0xFFFF)) & 0xFFFFu;
 }
 
+// Strict mode: whether the code of delta d saturated (the reference's
+// to_codes `over`: |d| > 0x7FFF with |d| wrapping as torch.abs, so INT32_MIN
+// is not an overflow; zigzag z > 0xFFFF), and the exact residual d - rec of
+// the saturated code's delta rec, in wrapping int32.
+__device__ __forceinline__ bool code_overflows(int d, int zigzag) {
+  if (!zigzag) return (d < 0 ? static_cast<int>(0u - static_cast<unsigned>(d)) : d) > 0x7FFF;
+  return static_cast<int>((static_cast<unsigned>(d) << 1) ^ static_cast<unsigned>(d >> 31)) >
+         0xFFFF;
+}
+
+__device__ __forceinline__ int code_residual(int d, int zigzag) {
+  int rec;
+  if (!zigzag) {
+    const int sat = min(d < 0 ? static_cast<int>(0u - static_cast<unsigned>(d)) : d, 0x7FFF);
+    rec = d < 0 ? static_cast<int>(0u - static_cast<unsigned>(sat)) : sat;
+  } else {
+    const int zs = min(static_cast<int>((static_cast<unsigned>(d) << 1) ^
+                                        static_cast<unsigned>(d >> 31)), 0xFFFF);
+    rec = (zs >> 1) ^ -(zs & 1);
+  }
+  return static_cast<int>(static_cast<unsigned>(d) - static_cast<unsigned>(rec));
+}
+
 // Pre-quantization of one element: a true IEEE divide (__fdiv_rn, no
 // --use_fast_math), rounded half to even and converted as XLA does (out of
 // range saturates, NaN gives 0: __float2int_rn), as the reference.

@@ -3,10 +3,12 @@
 // Replace the Pallas TPU kernels repro/kernels/fused_compress.py:fused_compress
 // (K4: float data -> quantize + Lorenzo + bitshuffle + zero-block flags +
 // compaction in one launch) and :fused_shuffle_encode (K5: the same on given
-// u16 codes, the strict-mode route). Output: packed flags u32[16 * tiles],
-// payload u16[capacity, 8], nnz i32. K4's payload is zeroed by the caller; K5
-// writes every block of its payload, zero past nnz, as the TPU kernel zeroes
-// it in its body.
+// u16 codes, the reference's strict-mode route). Output: packed flags
+// u32[16 * tiles], payload u16[capacity, 8], nnz i32. K4's payload is zeroed
+// by the caller; K5 writes every block of its payload, zero past nnz, as the
+// TPU kernel zeroes it in its body. Strict K4 (WindowCodesStrict) also writes
+// the exact outlier channel, so strict mode is one launch here, where the
+// reference runs dual_quantize's jnp ops and then K5.
 //
 // Bound: bytes. The input is read once, the flags and the payload written
 // once; the function needs one divide per element (K4) and a few dozen
@@ -44,6 +46,19 @@
 // shuffled tile reuses the start of the buffer once every thread has made its
 // codes.
 //
+// Strict K4: the same launch, with the outlier channel of
+// core/quant.py:dual_quantize (the first K overflowing deltas in flat order,
+// each slot the flat index and the residual against the saturated code).
+// Each thread tests its 16 raw deltas before they become codes; a tile with
+// no overflow (a block-wide OR at the barrier that ends the window reads)
+// does nothing more. Otherwise each overflowing residual waits in shared
+// memory past the shuffled tile, and a warp scan and the warps' totals give
+// each group its overflows before it in the tile. The tile's place in the
+// channel is a second decoupled look-back, over the tiles' overflow counts,
+// published beside the block count's so neither chain waits on the other;
+// each group then writes its overflows while there are slots. The last tile
+// writes the uncapped count, as it writes nnz.
+//
 // K5. One CTA a tile in ticket order, as K4, with these differences:
 //   * two adjacent 16-code groups a thread, 128 threads a tile: 16 tiles in
 //     flight an SM where one group a thread fits 8 (the kernel waits on its
@@ -75,6 +90,42 @@
 
 namespace fz {
 
+// Strict K4's two look-backs, flagged blocks (st) and overflows (ost), with
+// both aggregates published before either chain is read. Called by all
+// threads; `agg` and `oagg` must be valid in warp 0. Returns the exclusive
+// block prefix; `oexcl` gets the exclusive overflow prefix.
+__device__ unsigned scan_blocks_and_overflows(unsigned long long* st, unsigned long long* ost,
+                                              long long seg, unsigned agg, unsigned oagg,
+                                              unsigned& oexcl) {
+  __shared__ unsigned s_excl[2];
+  if (threadIdx.x < 32) {
+    unsigned excl = 0, oex = 0;
+    if (seg == 0) {
+      if (threadIdx.x == 0) {
+        publish(st, 0, ST_PREFIX, agg);
+        publish(ost, 0, ST_PREFIX, oagg);
+      }
+    } else {
+      if (threadIdx.x == 0) {
+        publish(st, seg, ST_AGGREGATE, agg);
+        publish(ost, seg, ST_AGGREGATE, oagg);
+      }
+      excl = lookback_exclusive(st, seg, 0);
+      if (threadIdx.x == 0) publish(st, seg, ST_PREFIX, excl + agg);
+      oex = lookback_exclusive(ost, seg, 0);
+      if (threadIdx.x == 0) publish(ost, seg, ST_PREFIX, oex + oagg);
+    }
+    if (threadIdx.x == 0) {
+      s_excl[0] = excl;
+      s_excl[1] = oex;
+    }
+  }
+  __syncthreads();
+  oexcl = s_excl[1];
+  return s_excl[0];
+}
+
+// Src: WindowCodes (paper) or WindowCodesStrict (the outlier channel too).
 template <typename Src>
 __global__ void __launch_bounds__(THREADS, Src::MIN_CTAS)
 encode_tiles(Src src, uint32_t* __restrict__ bitflags, uint16_t* __restrict__ payload,
@@ -88,9 +139,48 @@ encode_tiles(Src src, uint32_t* __restrict__ bitflags, uint16_t* __restrict__ pa
 
   // codes + bitshuffle: thread g takes group g
   unsigned a[16];
-  src.codes(smem, t * TILE, threadIdx.x, a);
-  shuffle_group(a);
-  __syncthreads();                                   // every window read is done
+  [[maybe_unused]] unsigned om = 0, o_before = 0, o_agg = 0;   // strict: the overflows
+  if constexpr (Src::STRICT) {
+    // the raw deltas first: code e of group g overflows if bit e of om is set;
+    // its residual waits in shared memory past the shuffled tile (word
+    // 16 g + e) until the tile's place in the channel is known
+    src.template codes<true>(smem, t * TILE, threadIdx.x, a);
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      om |= static_cast<unsigned>(code_overflows(static_cast<int>(a[e]), src.zigzag)) << e;
+    unsigned* resid = smem + TILE / 2;
+    if (__syncthreads_or(om != 0u)) {                // every window read is done
+      __shared__ unsigned s_warp[WARPS];
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if ((om >> e) & 1u)
+          resid[16 * threadIdx.x + e] =
+              static_cast<unsigned>(code_residual(static_cast<int>(a[e]), src.zigzag));
+      const unsigned cnt = __popc(om);
+      unsigned incl = cnt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned x = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += x;
+      }
+      if (lane == 31) s_warp[warp] = incl;
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const unsigned v = s_warp[w];
+        o_agg += v;
+        o_before += w < warp ? v : 0u;
+      }
+      o_before += incl - cnt;                        // overflows of the tile before group g
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) a[e] = to_code(static_cast<int>(a[e]), src.zigzag);
+    shuffle_group(a);
+  } else {
+    src.codes(smem, t * TILE, threadIdx.x, a);
+    shuffle_group(a);
+    __syncthreads();                                 // every window read is done
+  }
 #pragma unroll
   for (int w = 0; w < 16; ++w) sh[w * GROUPS_PER_TILE + threadIdx.x] = static_cast<uint16_t>(a[w]);
   __syncthreads();
@@ -106,8 +196,28 @@ encode_tiles(Src src, uint32_t* __restrict__ bitflags, uint16_t* __restrict__ pa
 
   unsigned agg = 0;
   if (warp == 0) agg = warp_sum(lane < FLAG_WORDS_PER_TILE ? __popc(fw[lane]) : 0u);
-  const unsigned base = scan_segment(st, t, 0, agg);
-  if (threadIdx.x == 0 && t == n_tiles - 1) *nnz = static_cast<int>(base + agg);
+  unsigned base;
+  if constexpr (Src::STRICT) {
+    unsigned obase;
+    base = scan_blocks_and_overflows(st, src.ost, t, agg, o_agg, obase);
+    if (threadIdx.x == 0 && t == n_tiles - 1) {
+      *nnz = static_cast<int>(base + agg);
+      *src.n_over = static_cast<int>(obase + o_agg);
+    }
+    // the channel: the group's overflows in order from its place in the
+    // stream's, while there are slots
+    unsigned m = om;
+    long long r = static_cast<long long>(obase) + o_before;
+    const unsigned* resid = smem + TILE / 2;
+    for (; m != 0u && r < src.ocap; m &= m - 1u, ++r) {
+      const int e = __ffs(m) - 1;
+      src.idx[r] = t * TILE + 16 * static_cast<int>(threadIdx.x) + e;
+      src.val[r] = static_cast<int>(resid[16 * threadIdx.x + e]);
+    }
+  } else {
+    base = scan_segment(st, t, 0, agg);
+    if (threadIdx.x == 0 && t == n_tiles - 1) *nnz = static_cast<int>(base + agg);
+  }
   if (threadIdx.x < FLAG_WORDS_PER_TILE)
     bitflags[static_cast<long long>(t) * FLAG_WORDS_PER_TILE + threadIdx.x] = fw[threadIdx.x];
 
@@ -297,6 +407,86 @@ shuffle_encode_tiles(const uint16_t* __restrict__ codes, uint32_t* __restrict__ 
 
 }  // namespace fz
 
+namespace {
+
+// K4's source for paper mode (no outlier channel) or strict mode (a Channel).
+struct NoChannel {};
+struct Channel {
+  int* idx;
+  int* val;
+  long long ocap;
+  int* n_over;
+};
+
+template <bool BF, int ND>
+fz::WindowCodes<BF, ND> source(const fz::WindowCodes<BF, ND>& codes, NoChannel,
+                               unsigned long long*) {
+  return codes;
+}
+
+template <bool BF, int ND>
+fz::WindowCodesStrict<BF, ND> source(const fz::WindowCodes<BF, ND>& codes, const Channel& ch,
+                                     unsigned long long* ost) {
+  return {codes, ch.idx, ch.val, ch.ocap, ch.n_over, ost};
+}
+
+// K4's dynamic shared bytes: the windows.
+size_t k4_smem(const fz::Windows& win, int vec, NoChannel) { return fz::window_smem(win, vec); }
+
+// Strict K4's: the windows, or the shuffled tile (TILE / 2 words) and the
+// residuals' stash (TILE words) after them, whichever is more.
+size_t k4_smem(const fz::Windows& win, int vec, const Channel&) {
+  const size_t stash = sizeof(unsigned) * (fz::TILE / 2 + fz::TILE);
+  const size_t windows = fz::window_smem(win, vec);
+  return windows > stash ? windows : stash;
+}
+
+// The windows both K4 entries plan for the data.
+fz::Windows k4_windows(int ndim, long long d1, long long d2, int vec, int mis) {
+  const int row = static_cast<int>(ndim == 3 ? d2 : d1), plane = static_cast<int>(d1 * d2);
+  return fz::plan_windows(ndim == 3 ? 4 : ndim, row, plane, vec, mis);
+}
+
+// Both K4 entries: the data's geometry and the dispatch over dtype and rank.
+template <typename Ch>
+int fused_compress(const void* x, int is_bf16, int ndim, long long d0, long long d1,
+                   long long d2, const float* eb, int zigzag, uint32_t* bitflags,
+                   uint16_t* payload, long long capacity, int* nnz, const Ch& ch,
+                   unsigned long long* scratch, void* stream) {
+  const int n = static_cast<int>(d0 * d1 * d2);
+  const int n_tiles = (n + fz::TILE - 1) / fz::TILE;
+  const int row = static_cast<int>(ndim == 3 ? d2 : d1);
+  const int plane = static_cast<int>(d1 * d2);
+  const int rows = static_cast<int>(d1);
+  const int esize = is_bf16 ? 2 : 4, vec = 16 / esize;
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(x) % 16) / esize;
+  const fz::Windows win = k4_windows(ndim, d1, d2, vec, mis);
+  const size_t smem = k4_smem(win, vec, ch);
+  unsigned long long* ost = scratch + n_tiles + 1;   // past the block look-back and the ticket
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FZ_K4(BF, ND)                                                                     \
+  return fz::launch(source(fz::WindowCodes<BF, ND>{x, eb, n, row, plane, rows, zigzag, win}, \
+                           ch, ost),                                                       \
+                    smem, n_tiles, bitflags, payload, capacity, nnz, scratch, s)
+  if (is_bf16) {
+    if (ndim == 1) FZ_K4(true, 1);
+    if (ndim == 2) FZ_K4(true, 2);
+    FZ_K4(true, 3);
+  }
+  if (ndim == 1) FZ_K4(false, 1);
+  if (ndim == 2) FZ_K4(false, 2);
+  FZ_K4(false, 3);
+#undef FZ_K4
+}
+
+template <typename Ch>
+long long fused_compress_smem(int is_bf16, int ndim, long long d1, long long d2, int mis) {
+  const int vec = is_bf16 ? 8 : 4;
+  return static_cast<long long>(k4_smem(k4_windows(ndim, d1, d2, vec, mis), vec, Ch{}));
+}
+
+}  // namespace
+
 extern "C" {
 
 const char* fz_error_string(int code) {
@@ -310,38 +500,33 @@ int fz_fused_compress(const void* x, int is_bf16, int ndim, long long d0, long l
                       long long d2, const float* eb, int zigzag, uint32_t* bitflags,
                       uint16_t* payload, long long capacity, int* nnz,
                       unsigned long long* scratch, void* stream) {
-  const int n = static_cast<int>(d0 * d1 * d2);
-  const int n_tiles = (n + fz::TILE - 1) / fz::TILE;
-  const int row = static_cast<int>(ndim == 3 ? d2 : d1);
-  const int plane = static_cast<int>(d1 * d2);
-  const int rows = static_cast<int>(d1);
-  const int esize = is_bf16 ? 2 : 4, vec = 16 / esize;
-  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(x) % 16) / esize;
-  const fz::Windows win = fz::plan_windows(ndim == 3 ? 4 : ndim, row, plane, vec, mis);
-  const size_t smem = fz::window_smem(win, vec);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FZ_K4(BF, ND)                                                                    \
-  return fz::launch(fz::WindowCodes<BF, ND>{x, eb, n, row, plane, rows, zigzag, win}, smem, \
-                    n_tiles, bitflags, payload, capacity, nnz, scratch, s)
-  if (is_bf16) {
-    if (ndim == 1) FZ_K4(true, 1);
-    if (ndim == 2) FZ_K4(true, 2);
-    FZ_K4(true, 3);
-  }
-  if (ndim == 1) FZ_K4(false, 1);
-  if (ndim == 2) FZ_K4(false, 2);
-  FZ_K4(false, 3);
-#undef FZ_K4
+  return fused_compress(x, is_bf16, ndim, d0, d1, d2, eb, zigzag, bitflags, payload, capacity,
+                        nnz, NoChannel{}, scratch, stream);
+}
+
+// Strict K4: fz_fused_compress with the exact outlier channel. idx, val:
+// i32[ocap], prefilled with n and 0 by the caller; n_over: the uncapped
+// overflow count. scratch: 2 n_tiles + 1 words, zeroed by the caller.
+int fz_fused_compress_strict(const void* x, int is_bf16, int ndim, long long d0, long long d1,
+                             long long d2, const float* eb, int zigzag, uint32_t* bitflags,
+                             uint16_t* payload, long long capacity, int* nnz, int* idx,
+                             int* val, long long ocap, int* n_over,
+                             unsigned long long* scratch, void* stream) {
+  return fused_compress(x, is_bf16, ndim, d0, d1, d2, eb, zigzag, bitflags, payload, capacity,
+                        nnz, Channel{idx, val, ocap, n_over}, scratch, stream);
 }
 
 // Dynamic shared bytes that fz_fused_compress sets for this data, its
 // element 0 `mis` elements past a 16-byte boundary.
 long long fz_fused_compress_smem(int is_bf16, int ndim, long long d0, long long d1, long long d2,
                                  int mis) {
-  const int vec = is_bf16 ? 8 : 4;
-  const int row = static_cast<int>(ndim == 3 ? d2 : d1), plane = static_cast<int>(d1 * d2);
-  return static_cast<long long>(
-      fz::window_smem(fz::plan_windows(ndim == 3 ? 4 : ndim, row, plane, vec, mis), vec));
+  return fused_compress_smem<NoChannel>(is_bf16, ndim, d1, d2, mis);
+}
+
+// The same for fz_fused_compress_strict.
+long long fz_fused_compress_strict_smem(int is_bf16, int ndim, long long d0, long long d1,
+                                        long long d2, int mis) {
+  return fused_compress_smem<Channel>(is_bf16, ndim, d1, d2, mis);
 }
 
 // K5. codes: u16[n_tiles * 4096]. payload: every block written (zero past

@@ -70,6 +70,7 @@ struct WindowCodes {
   // at most 48 registers a thread: 5 CTAs an SM, as the windows' shared
   // memory allows at (100, 500, 500) (39 KB a CTA)
   static constexpr int MIN_CTAS = 5;
+  static constexpr bool STRICT = false;        // no outlier channel (WindowCodesStrict)
   const void* x;
   const float* eb;                 // device scalar: the absolute error bound
   int n, row, plane, rows;
@@ -139,7 +140,9 @@ struct WindowCodes {
     }
   }
 
-  // Group g's 16 codes (0 past n). Called by all threads.
+  // Group g's 16 codes (0 past n); RAW: the int32 Lorenzo deltas instead, as
+  // unsigned (0 past n). Called by all threads.
+  template <bool RAW = false>
   __device__ __forceinline__ void codes(unsigned* buf, int p0, int g, unsigned code[16]) const {
     load(buf, p0);
     const int p = p0 + g * 16;
@@ -212,10 +215,29 @@ struct WindowCodes {
       }
     }
     const int valid = n - p;
+    if constexpr (RAW) {
 #pragma unroll
-    for (int e = 0; e < 16; ++e)
-      code[e] = e < valid ? to_code(static_cast<int>(d[e]), zigzag) : 0u;
+      for (int e = 0; e < 16; ++e) code[e] = e < valid ? d[e] : 0u;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        code[e] = e < valid ? to_code(static_cast<int>(d[e]), zigzag) : 0u;
+    }
   }
+};
+
+// Strict K4's source: the same codes, and the exact outlier channel (the
+// first `ocap` overflows in flat order: flat index in idx, residual in val)
+// with the uncapped overflow count in *n_over. ost: the overflow counts'
+// look-back words, zeroed by the caller.
+template <bool BF16, int ND>
+struct WindowCodesStrict : WindowCodes<BF16, ND> {
+  static constexpr bool STRICT = true;
+  int* idx;
+  int* val;
+  long long ocap;
+  int* n_over;
+  unsigned long long* ost;
 };
 
 // The windows of offsets {0, row, plane, plane + row} (the first `count`),

@@ -5,8 +5,8 @@ the paper's metrics (CR, bitrate, PSNR, SSIM) across error bounds. The port of
     python -m repro_torch.examples.compress_field --kind wavefront
     python -m repro_torch.examples.compress_field --kind turbulent --shape 16 16 8 --device cpu
 
-The default route: strict mode, so the exact outlier channel's quantization
-runs as torch ops, then K5 and K6 on the card. ``main`` returns the CSV rows
+The default route: strict mode, so strict K4 (K4 with the exact outlier
+channel) and K6 on the card. ``main`` returns the CSV rows
 it prints.
 """
 from __future__ import annotations

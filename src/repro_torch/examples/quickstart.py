@@ -5,7 +5,7 @@
     python -m repro_torch.examples.quickstart --device cpu --shape 16 16 8
 
 The flow is the reference's: three relative bounds through the default route
-(fused: K5 after the exact outlier channel's quantization, K6 back), the
+(fused: strict K4 with the exact outlier channel, K6 back), the
 bfloat16 source accounting, the cold tier through ``to_bytes`` /
 ``decompress_bytes``, and the kernel path. Differences: the kernel path is the
 staged CUDA route (K1, K2, K3; the reference's Pallas kernels), and the

@@ -5,7 +5,7 @@ Exercises the full production path at laptop scale: the training step on a
 one-rank mesh (``make_local_mesh``: any (pod, data, model) layout on more
 ranks), AdamW + warmup-cosine, checkpoint/restart (kill it mid-run and
 re-launch: it resumes), straggler watchdog, and FZ-compressed checkpoints
-(float32 leaves through K5 on save and K6 on restore, on the card).
+(float32 leaves through strict K4 on save and K6 on restore, on the card).
 
     python -m repro_torch.examples.train_lm --steps 300
     python -m repro_torch.examples.train_lm --steps 2 --batch 2 --seq 16 --device cpu

@@ -37,9 +37,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "fz_compress.cu": {
         "fz_fused_compress": [_P, _I, _I, _L, _L, _L, _P, _I, _P, _P, _L, _P, _P, _P],
+        "fz_fused_compress_strict": [_P, _I, _I, _L, _L, _L, _P, _I, _P, _P, _L, _P, _P, _P,
+                                     _L, _P, _P, _P],
         "fz_fused_shuffle_encode": [_P, _L, _P, _P, _L, _P, _P, _P],
         "fz_fused_shuffle_encode_ctas": [],
         "fz_fused_compress_smem": [_I, _I, _L, _L, _L, _I],
+        "fz_fused_compress_strict_smem": [_I, _I, _L, _L, _L, _I],
     },
     "fz_decompress.cu": {
         "fz_fused_decompress": [_P, _P, _L, _P, _I, _I, _L, _L, _L, _P, _P, _L, _P, _P,
@@ -65,6 +68,7 @@ SIGNATURES = {
 # the queries of a launch's dynamic shared bytes ("*_smem") and of sizes
 _RESTYPES = {"fz_decompress_scratch_words": _L, "fz_flash_decode_scratch_floats": _L,
              "fz_fused_shuffle_encode_ctas": _L, "fz_fused_compress_smem": _L,
+             "fz_fused_compress_strict_smem": _L,
              "fz_scan_columns_smem": _L, "fz_lorenzo_quant_smem": _L,
              "fz_lorenzo_quant_walks": _L,
              "fz_flash_decode_smem": _L, "fz_flash_decode_combine_smem": _L}

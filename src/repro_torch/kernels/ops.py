@@ -2,13 +2,14 @@
 
 Two routes, selected by ``FZConfig.kernel_mode`` (``core/fz.py``):
 
-* **fused** -- ``fused_compress_stages`` keeps the reference's explicit
-  outlier route (``repro/kernels/ops.py:127-153``): the exact residual
-  channel needs the unsaturated int32 deltas, which K4 never materializes,
-  so in strict mode (``outlier_capacity > 0``) quantization runs as plain
-  PyTorch ops (``core.quant.dual_quantize``, on the card when the data is
-  there) and K5 shuffles, flags and compacts the codes. Paper mode runs K4
-  alone. Decompression is K6 in both modes.
+* **fused** -- ``fused_compress_stages`` is one launch in both modes: K4 in
+  paper mode, strict K4 (``fused_compress_strict``) in strict mode
+  (``outlier_capacity > 0``), which also writes the exact outlier channel
+  from the int32 deltas it holds in registers before they become codes.
+  Deliberate difference: the reference keeps an explicit outlier route here
+  (``repro/kernels/ops.py:127-153``: ``dual_quantize`` as jnp ops, then K5),
+  whose docstring says the fused kernel never materializes the deltas; the
+  containers are identical. Decompression is K6 in both modes.
 * **staged** -- the paper's unfused pipeline, one launch per stage with the
   codes in device memory between them, mirroring
   ``repro/kernels/ops.py:72-120``: ``lorenzo_quantize`` (K1 in paper mode,
@@ -23,12 +24,10 @@ the reference (an ``obs.spans.leaf``: a stage opens no span inside it);
 ``backend`` is ``"cuda"`` where the wrapper launches its kernel and ``"cpu"``
 where it runs its plain version for a CPU tensor (the plain stages of
 ``core/fz.py`` say ``"reference"``). The fused route's compress is
-``fz.stage.fused_compress`` (K4) in paper mode and, in strict mode, two
-leaves in turn: ``fz.stage.dual_quantize`` (the torch-op quantize and the
-outlier channel, with its ``nonzero`` wait) and
-``fz.stage.fused_shuffle_encode`` (the pad and K5); its decompress is
-``fz.stage.fused_decompress``. The staged route's are ``fz.stage.quantize``,
-``fz.stage.shuffle_encode`` and ``fz.stage.unshuffle``; ``core/fz.py`` adds
+``fz.stage.fused_compress`` in both modes, with ``outliers=`` (the channel's
+slots) in strict mode; its decompress is ``fz.stage.fused_decompress``. The
+staged route's are ``fz.stage.quantize``, ``fz.stage.shuffle_encode`` and
+``fz.stage.unshuffle``; ``core/fz.py`` adds
 ``fz.stage.resolve_eb``. Deliberate difference: in the reference these spans
 run only while jax traces the enclosing fz jit (``cat="jit-trace"``, once a
 compilation); the port has no jit, so they are runtime spans, nested under
@@ -50,11 +49,11 @@ from typing import Optional
 import torch
 
 from ..core import encode as enc
-from ..core import quant, shuffle
+from ..core import quant
 from ..obs import spans
 from . import fused_decode as _fd
 from .bitshuffle_flag import bitshuffle_flag, bitunshuffle_tiles
-from .fused_compress import FLAG_WORDS_PER_TILE, TILE, fused_compress, fused_shuffle_encode
+from .fused_compress import FLAG_WORDS_PER_TILE, TILE, fused_compress, fused_compress_strict
 from .lorenzo_quant import lorenzo_quant
 
 __all__ = ["fused_compress_stages", "fused_decompress", "lorenzo_quantize",
@@ -110,13 +109,9 @@ def fused_compress_stages(data: torch.Tensor, eb: torch.Tensor, *, code_mode: st
     """-> (bitflags, payload, nnz, outlier_idx, outlier_val, n_over)."""
     backend = backend_label(data)
     if outlier_capacity > 0:
-        with spans.leaf("fz.stage.dual_quantize", backend=backend):
-            codes, oidx, oval, n_over = quant.dual_quantize(
-                data, eb, code_mode=code_mode, outlier_capacity=outlier_capacity)
-        with spans.leaf("fz.stage.fused_shuffle_encode", backend=backend):
-            flat = shuffle.pad_to_tiles(codes.reshape(-1)).to(torch.uint16)
-            bitflags, payload, nnz = fused_shuffle_encode(flat, capacity=capacity)
-        return bitflags, payload, nnz, oidx, oval, n_over
+        with spans.leaf("fz.stage.fused_compress", backend=backend, outliers=outlier_capacity):
+            return fused_compress_strict(data, eb, capacity=capacity,
+                                         outlier_capacity=outlier_capacity, code_mode=code_mode)
     with spans.leaf("fz.stage.fused_compress", backend=backend):
         if data.is_meta:
             bitflags, payload, nnz = _k4(data, eb, capacity, code_mode)

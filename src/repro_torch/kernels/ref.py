@@ -7,6 +7,8 @@ Each function computes exactly what its kernel computes, the way
 * K2 ``bitshuffle_flag``:      bitshuffle(codes), block_flags(...) as bytes
 * K3 ``bitunshuffle_tiles``:   bitunshuffle(words)
 * K4 ``fused_compress``:       encode(bitshuffle(pad(quantize(data))))
+* strict K4 ``fused_compress_strict``: dual_quantize(data) with its outlier
+                               channel, then K5's plain version on the codes
 * K5 ``fused_shuffle_encode``: encode(bitshuffle(codes))
 * K6 ``fused_decompress``:     dual_dequantize(bitunshuffle(decode(...)))
 * K7 ``flash_decode``:         the reference kernel's per-tile online softmax,
@@ -57,6 +59,17 @@ def fused_compress_ref(data: torch.Tensor, eb: torch.Tensor, *, capacity: int,
     codes = lorenzo_quant_ref(data, eb, code_mode=code_mode)
     return fused_shuffle_encode_ref(shuffle.pad_to_tiles(codes.reshape(-1)),
                                     capacity=capacity)
+
+
+def fused_compress_strict_ref(data: torch.Tensor, eb: torch.Tensor, *, capacity: int,
+                              outlier_capacity: int, code_mode: str = "sign_mag"):
+    """float (1-3)D -> (bitflags, payload, nnz, outlier_idx int32[K], outlier_val
+    int32[K], n_over int32[]): strict mode's quantize and its encode, as the
+    reference's explicit outlier route runs them."""
+    codes, oidx, oval, n_over = quant.dual_quantize(data, eb, code_mode=code_mode,
+                                                    outlier_capacity=outlier_capacity)
+    flat = shuffle.pad_to_tiles(codes.reshape(-1)).to(torch.uint16)
+    return (*fused_shuffle_encode_ref(flat, capacity=capacity), oidx, oval, n_over)
 
 
 def fused_shuffle_encode_ref(codes_flat: torch.Tensor, *, capacity: int):

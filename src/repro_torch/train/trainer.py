@@ -5,7 +5,7 @@ straggler watchdog. The port of ``repro/train/trainer.py``.
     under ``ckpt_dir`` (params, optimizer, error-feedback state, step) and
     the loss sequence continues bit for bit;
   * periodic and final checkpoints, atomic, keep-last-k (``repro_torch.ckpt``;
-    ``ckpt_codec="fz"`` compresses float32 leaves with K5 and restores them
+    ``ckpt_codec="fz"`` compresses float32 leaves with strict K4 and restores them
     with K6 on the card);
   * straggler watchdog: each step's wall time against an EWMA; a step slower
     than ``factor`` times the EWMA is logged with a mitigation decision.

@@ -26,7 +26,8 @@ By default it is that 1-D stream compressed in paper mode, as the
 reference's; a caller whose traffic differs passes its ``shape`` (the same
 draws, reshaped) and ``mode`` (``"paper"`` or ``"strict"``), and every
 candidate then runs that route -- K1 walks and K6 runs its column passes on
-a 3-D field, strict compress runs plain ``dual_quantize`` + K5.
+a 3-D field, strict compress runs strict K4 (fused) or plain
+``dual_quantize`` + K2 (staged).
 
 Deliberate difference: the attention context is drawn from
 ``np.random.default_rng(7)`` where the reference draws from
@@ -100,11 +101,12 @@ def _fz_specs(impl: str, direction: str):
         shape, dtype, n_tiles = ctx["shape"], ctx["dtype"], _n_tiles(ctx["n"])
         if direction == "compress":
             bs = module("bitshuffle_flag")
-            if ctx["strict"]:            # plain dual_quantize, then K5 or K2
-                return [module("fused_compress").fused_shuffle_encode_spec(n_tiles)
-                        if impl == "fused" else bs.bitshuffle_flag_spec(n_tiles)]
-            if impl == "fused":
-                return [module("fused_compress").fused_compress_spec(shape, dtype)]
+            if impl == "fused":          # K4, or strict K4 with the outlier channel
+                fc = module("fused_compress")
+                spec = fc.fused_compress_strict_spec if ctx["strict"] else fc.fused_compress_spec
+                return [spec(shape, dtype)]
+            if ctx["strict"]:            # plain dual_quantize, then K2
+                return [bs.bitshuffle_flag_spec(n_tiles)]
             return [*module("lorenzo_quant").specs(shape, dtype), bs.bitshuffle_flag_spec(n_tiles)]
         if impl == "fused":
             n_out = int(ctx["container"].outlier_idx.numel()) if ctx["strict"] else 0

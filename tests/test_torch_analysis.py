@@ -180,6 +180,9 @@ class _Lib:
     def fz_fused_compress_smem(self, is_bf16, ndim, d0, d1, d2, mis):
         return 1000 + 10 * ndim + is_bf16
 
+    def fz_fused_compress_strict_smem(self, is_bf16, ndim, d0, d1, d2, mis):
+        return max(24576, self.fz_fused_compress_smem(is_bf16, ndim, d0, d1, d2, mis))
+
     def fz_lorenzo_quant_smem(self, is_bf16, ndim, d0, d1, d2, mis):
         return 2000 + ndim
 
@@ -208,6 +211,8 @@ def test_specs_take_the_c_sides_bytes(monkeypatch):
     lib = _Lib()
     monkeypatch.setattr(build, "query", lambda source, fn, args: getattr(lib, fn)(*args))
     assert fc.fused_compress_spec((100, 500, 500), "bfloat16").dynamic_smem == 1031
+    assert fc.fused_compress_strict_spec((100, 500, 500), "bfloat16").dynamic_smem \
+        == 24576
     assert [(s.name, s.dynamic_smem) for s in lq.specs((100, 500, 500))] == [
         ("lorenzo_quant.walk", 2003)]
     assert [(s.name, s.dynamic_smem) for s in lq.specs((5000,))] == [
@@ -236,7 +241,8 @@ def test_every_fz_point_resolves_through_the_c_side(monkeypatch, shape, dtype):
                          "fused_shuffle_encode"]
     assert names[5:7] == ["fused_decompress.bin_residuals",
                           "fused_decompress.decode_scan_rows"]
-    assert len(names) == 7 + len(fdec.column_passes(shape))
+    assert names[-1] == "fused_compress_strict"
+    assert len(names) == 8 + len(fdec.column_passes(shape))
     assert all(isinstance(s.dynamic_smem, int) for s in specs)
     assert specs[3].c_query == ("fz_compress.cu", "fz_fused_compress_smem",
                                 (int(dtype == "bfloat16"), len(shape), *fc.dims3(shape), 0))

@@ -28,7 +28,8 @@ from repro_torch.analysis.kernelspec import KernelSpec
 from repro_torch.kernels import module
 
 ROOT = Path(__file__).resolve().parents[1]
-CARRYING = {"fused_compress", "fused_shuffle_encode", "fused_decompress.decode_scan_rows"}
+CARRYING = {"fused_compress", "fused_compress_strict", "fused_shuffle_encode",
+            "fused_decompress.decode_scan_rows"}
 
 
 def _rules(findings):
@@ -58,7 +59,8 @@ def test_real_tree_has_no_carry_finding():
 
 def test_carrying_kernels_are_launched_by_their_entry_points():
     unit = carry.load_unit("fz_compress.cu")
-    assert carry.launchers(unit, "encode_tiles") == {"fz_fused_compress"}
+    assert carry.launchers(unit, "encode_tiles") == {"fz_fused_compress",
+                                                     "fz_fused_compress_strict"}
     assert carry.launchers(unit, "shuffle_encode_tiles") == {"fz_fused_shuffle_encode"}
     assert carry.launchers(carry.load_unit("fz_decompress.cu"),
                            "decode_scan_rows") == {"fz_fused_decompress"}
@@ -149,17 +151,20 @@ def test_seeded_scratch_rule(alloc, flagged):
 
 
 def test_the_real_wrappers_zero_through_a_helper():
-    """K4 and K5 take their scratch from ``_outputs`` (``torch.zeros``): followed
-    into the helper, clean; the same helper allocating with ``torch.empty`` is
-    flagged."""
+    """K4, strict K4 and K5 take their scratch from ``_outputs``
+    (``torch.zeros``): followed into the helper, clean; the same helper
+    allocating with ``torch.empty`` is flagged at both calls that launch
+    ``encode_tiles``, from either site's spec."""
     fc = Path(module("fused_compress").__file__)
     src = fc.read_text()
-    spec = _site_specs()["fused_compress"]
-    assert carry.analyze_spec(spec, wrapper=(src, "fused_compress.py")) == []
-    bad = src.replace("scratch = torch.zeros(n_tiles + 1", "scratch = torch.empty(n_tiles + 1")
+    bad = src.replace("scratch = torch.zeros(lookbacks * n_tiles + 1",
+                      "scratch = torch.empty(lookbacks * n_tiles + 1")
     assert bad != src
-    got = carry.analyze_spec(spec, wrapper=(bad, "fused_compress.py"))
-    assert _rules(got) == [("carry-scratch-not-zeroed", "error")]
+    for name in ("fused_compress", "fused_compress_strict"):
+        spec = _site_specs()[name]
+        assert carry.analyze_spec(spec, wrapper=(src, "fused_compress.py")) == []
+        got = carry.analyze_spec(spec, wrapper=(bad, "fused_compress.py"))
+        assert _rules(got) == [("carry-scratch-not-zeroed", "error")] * 2, name
 
 
 def test_undeclared_and_unused_carries():

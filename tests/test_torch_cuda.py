@@ -4,7 +4,7 @@ Marked ``cuda``: each test skips without a CUDA card. Run on a card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The FZ kernels (K1-K6) are held bit for bit: they and their plain versions do
+The FZ kernels (K1-K6, strict K4) are held bit for bit: they and their plain versions do
 the same integer work and the same IEEE float divide and multiply. K7
 (flash-decode) is held at 2e-4 against the plain split-then-combine at the
 wrapper's split count (what the wrapper runs for CPU tensors): float32 sums in
@@ -13,7 +13,7 @@ another order; fully masked rows exactly (-1e30, 0, 0).
 The wire and checkpoints on the card: ``reduce_stacked`` (K4, K6) equal to
 the plain route, the CPU route and the bucketed form over three steps;
 ``flash_decode_shard``'s per-shard K7 partials combined within 2e-4 of the
-plain attention; a ``codec="fz"`` checkpoint saved on the card (K5) equal to
+plain attention; a ``codec="fz"`` checkpoint saved on the card (strict K4) equal to
 the CPU port's files, restored (K6) within the bound.
 
 The MoE router on the card: ``moe.moe_apply`` on exactly representable
@@ -22,8 +22,8 @@ slot.
 
 Training on the card: two compressed steps at the smoke config, the kernel
 route equal to the plain route and to itself, bit for bit; the overlap form
-equal to the barrier form; the train launcher saving with K5 and resuming
-with K6 under ``--ckpt-codec fz``.
+equal to the barrier form; the train launcher saving with strict K4 and
+resuming with K6 under ``--ckpt-codec fz``.
 """
 import os
 
@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from repro_torch import FZConfig, compress, decompress, kernels
-from repro_torch.core import shuffle
+from repro_torch.core import quant, shuffle
 from repro_torch.data.fields import make_field
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
@@ -108,6 +108,70 @@ def test_fused_compress_of_a_view_off_16_bytes_matches_plain(cuda, shape, dtype,
     got = kernels.fused_shuffle_encode(flat, capacity=cap)
     for g, w in zip(got, ref.fused_shuffle_encode_ref(codes, capacity=cap)):
         assert _equal(g, w)
+
+
+# strict K4's fields: K4's shapes with planted jumps, a 1-D stream past one
+# wave of tiles whose jumps sit on both sides of tile borders, and non-finite
+# and saturated values (a delta of INT32_MIN among them)
+STRICT_CASES = SHAPES + K4_EDGE_SHAPES + ["waves", "nonfinite"]
+NONFINITE_RUN = [0.0, -1e30, 0.0, float("nan"), float("inf"), float("-inf"), 1e30, 3.0,
+                 -3e9, 3e9, 2.2e9, -2.2e9, 0.0, 1.0, 2.0, 4e4, -4e4, 7e4]
+
+
+def _strict_field(case, seed=11):
+    """-> (float32 field, its range): jumps of 20 ranges every 61st element
+    (1-D stream: next to every 7th tile border), alternating in sign."""
+    if case == "nonfinite":
+        run = torch.tensor(NONFINITE_RUN)
+        x = torch.cat([run, torch.zeros(shuffle.TILE - run.numel()), run, torch.zeros(5)])
+        return x, 1.0
+    if case == "waves":
+        n = (shuffle_encode_ctas() + 3) * shuffle.TILE - 1000
+        x = torch.randn(n, generator=torch.Generator().manual_seed(seed)).cumsum(0) * 1e-3
+        at = [p for t in range(7, n // shuffle.TILE, 7)
+              for p in (t * shuffle.TILE - 1, t * shuffle.TILE, t * shuffle.TILE + 4095)]
+    else:
+        x = _field(case, seed=seed)
+        at = list(range(0, x.numel(), 61))
+    rng_ = float(x.max() - x.min()) or 1.0
+    flat = x.reshape(-1)
+    for k, p in enumerate(at):
+        flat[p:] += 20.0 * rng_ * (1 if k % 2 else -1)
+    return x, rng_
+
+
+@pytest.mark.parametrize("case", STRICT_CASES, ids=[str(c) for c in STRICT_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("code_mode", ["sign_mag", "zigzag"])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_fused_compress_strict_matches_plain(cuda, case, dtype, code_mode, offset):
+    """Strict K4 against ``dual_quantize`` + K5's plain version, bit for bit in
+    all six outputs, with the channel empty (a bound no delta can pass), exactly
+    full and overflowing (n_over > K: the first K kept), at the data's own
+    allocation and 3 elements off 16 bytes."""
+    x32, rng_ = _strict_field(case)
+    n = x32.numel()
+    buf = torch.empty(n + offset, dtype=dtype, device=cuda)
+    x = buf[offset:].view(x32.shape)
+    x.copy_(x32.to(dtype))
+    cap = FZConfig(capacity_frac=0.5).payload_capacity(n)
+    # a jump of 20 ranges is a delta of 1e5 at 1e-4 of the range; at 1e-2 no
+    # delta passes 8 x 1000 (the non-finite run overflows at any bound)
+    loose = torch.tensor(1e-2 * rng_, device=cuda)
+    eb = torch.tensor((0.5 if case == "nonfinite" else 1e-4 * rng_), device=cuda)
+    n_over = int(quant.dual_quantize(x, eb, code_mode=code_mode, outlier_capacity=1)[3])
+    assert n_over > 0
+    for eb_, k in ((loose, 3), (eb, n_over), (eb, max(1, n_over // 2)), (eb, max(1, n_over - 1))):
+        got = kernels.fused_compress_strict(x, eb_, capacity=cap, outlier_capacity=k,
+                                            code_mode=code_mode)
+        want = ref.fused_compress_strict_ref(x, eb_, capacity=cap, outlier_capacity=k,
+                                             code_mode=code_mode)
+        for name, g, w in zip(("bitflags", "payload", "nnz", "outlier_idx", "outlier_val",
+                               "n_over"), got, want):
+            assert _equal(g, w), (name, float(eb_), k)
+        if eb_ is loose and case != "nonfinite":
+            assert int(got[5]) == 0                  # the empty channel
+    assert int(got[5]) == n_over
 
 
 @pytest.mark.parametrize("shape", SHAPES + K4_EDGE_SHAPES)
@@ -304,7 +368,7 @@ def test_staged_entry_points_launch_the_staged_kernels(cuda, exact_outliers):
     y = decompress(c, cfg)
     counts = kernels.launch_counts()
     assert counts == {"lorenzo_quant": 0 if exact_outliers else 1, "bitshuffle_flag": 1,
-                      "bitunshuffle_tiles": 1, "fused_compress": 0,
+                      "bitunshuffle_tiles": 1, "fused_compress": 0, "fused_compress_strict": 0,
                       "fused_shuffle_encode": 0, "fused_decompress": 0, "flash_decode": 0}
     plain = FZConfig(eb=1e-3, exact_outliers=exact_outliers, use_kernels=False)
     c0 = compress(x, plain)
@@ -343,7 +407,8 @@ def test_entry_points_launch_the_kernels(cuda, exact_outliers):
     y = decompress(c, cfg)
     counts = kernels.launch_counts()
     assert counts["fused_compress"] == (0 if exact_outliers else 1)
-    assert counts["fused_shuffle_encode"] == (1 if exact_outliers else 0)
+    assert counts["fused_compress_strict"] == (1 if exact_outliers else 0)
+    assert counts["fused_shuffle_encode"] == 0
     assert counts["fused_decompress"] == 1
     plain = FZConfig(eb=1e-3, exact_outliers=exact_outliers, use_kernels=False)
     c0 = compress(x, plain)
@@ -367,8 +432,8 @@ def test_zero_field_and_smallest_capacity(cuda, exact_outliers):
 
 
 def test_overflowing_deltas_take_the_outlier_route(cuda):
-    """Strict mode on a field with jumps: the residual channel fills and K5 still
-    matches the plain route."""
+    """Strict mode on a field with jumps: the residual channel fills and strict
+    K4 still matches the plain route."""
     x = _field((9, 33, 70), seed=4)
     x[::2] += 1000.0
     cfg = FZConfig(eb=1e-3, eb_mode="abs")
@@ -507,9 +572,9 @@ def test_span_around_k4_records_its_event_and_adds_no_sync(cuda):
 @pytest.mark.parametrize("strict", [False, True], ids=["paper", "strict"])
 def test_fz_host_syncs_count_the_cards_syncs(cuda, strict):
     """``fz_host_syncs`` counts what ``set_sync_debug_mode`` reports of a
-    compress and its size read (paper: ``used_bytes``'s two reads; strict: and
-    ``dual_quantize``'s ``nonzero``), and the spans, counters and GC hook add
-    no sync (on == off)."""
+    compress and its size read (``used_bytes``'s two reads in both modes:
+    strict K4 writes the outlier channel on the card, with no ``nonzero``),
+    and the spans, counters and GC hook add no sync (on == off)."""
     from repro_torch import obs
     obs.reset()
     obs.clear_events()
@@ -522,7 +587,7 @@ def test_fz_host_syncs_count_the_cards_syncs(cuda, strict):
         on = _syncs(call)
         counted = sum(v for k, v in obs.snapshot()["counters"].items()
                       if k.startswith("fz_host_syncs{"))
-        assert counted == on == (3 if strict else 2)
+        assert counted == on == 2
         with obs.disabled():
             off = _syncs(call)
         assert on == off
@@ -647,7 +712,7 @@ def test_flash_decode_shards_on_the_card(cuda, lengths):
 
 
 def test_checkpoint_on_the_card_matches_the_cpu(cuda, tmp_path):
-    """``codec="fz"`` compresses on the card (K5) and restores with K6: the files
+    """``codec="fz"`` compresses on the card (strict K4) and restores with K6: the files
     equal the CPU port's byte for byte, the bound holds and bf16 comes back exact."""
     from repro_torch import ckpt
     from repro_torch.ckpt import checkpoint
@@ -664,7 +729,7 @@ def test_checkpoint_on_the_card_matches_the_cpu(cuda, tmp_path):
             open(os.path.join(d_cpu, name), "rb").read(), name
     back, meta = ckpt.restore(str(tmp_path / "card"), tree)
     counts = kernels.launch_counts()
-    assert counts["fused_shuffle_encode"] > 0 and counts["fused_decompress"] > 0
+    assert counts["fused_compress_strict"] > 0 and counts["fused_decompress"] > 0
     assert meta["step"] == 1
     for key in ("w", "n"):
         x = tree[key]
@@ -749,7 +814,7 @@ def test_overlap_step_on_the_card_equals_the_barrier_step(cuda):
 def test_train_launcher_on_the_card_saves_and_resumes_with_the_fz_codec(cuda, tmp_path, capsys):
     """``python -m repro_torch.launch.train --arch yi-6b --smoke --ckpt-codec fz``
     on the card: 2 steps, then 3 from the same directory. The save compresses
-    the large float32 leaves with K5, the restore decodes them with K6, and the
+    the large float32 leaves with strict K4, the restore decodes them with K6, and the
     printed lines are the reference's."""
     from repro_torch.launch import train as launch_train
     root = str(tmp_path / "ck")
@@ -765,7 +830,7 @@ def test_train_launcher_on_the_card_saves_and_resumes_with_the_fz_codec(cuda, tm
     head = "yi-6b-smoke: 0.4M params, mesh={'data': 1, 'model': 1}, reduce=exact, resume_step="
     assert [line for line in out if line.startswith("yi-6b")] == [head + "0", head + "2"]
     assert [m["step"] for m in hist] == [2] and np.isfinite(hist[0]["loss"])
-    assert saved["fused_shuffle_encode"] > 0 and resumed["fused_decompress"] > 0
+    assert saved["fused_compress_strict"] > 0 and resumed["fused_decompress"] > 0
     assert saved["fused_compress"] == resumed["fused_compress"] == 0     # no pod axis
 
 

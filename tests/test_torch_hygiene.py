@@ -223,6 +223,7 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_nothing():
     x = torch.linspace(0, 1, 9000).reshape(90, 100)
     eb = torch.tensor(1e-3)
     bf, pl, nnz = kernels.fused_compress(x, eb, capacity=1000)
+    kernels.fused_compress_strict(x, eb, capacity=1000, outlier_capacity=35)
     kernels.fused_shuffle_encode(torch.zeros(4096, dtype=torch.uint16), capacity=10)
     kernels.fused_decompress(bf, pl, eb, shape=(90, 100))
     codes = kernels.lorenzo_quant(x, eb)
@@ -236,7 +237,8 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_nothing():
     assert not build._loaded
 
 
-@pytest.mark.parametrize("wrapper", ["fused_compress", "fused_shuffle_encode",
+@pytest.mark.parametrize("wrapper", ["fused_compress", "fused_compress_strict",
+                                     "fused_shuffle_encode",
                                      "fused_decompress", "lorenzo_quant", "bitshuffle_flag",
                                      "bitunshuffle_tiles", "flash_decode_pages",
                                      "flash_decode_contiguous"])
@@ -246,6 +248,8 @@ def test_wrappers_never_fall_back_on_other_devices(wrapper):
     calls = {
         "fused_compress": lambda: kernels.fused_compress(
             torch.empty(100, device=meta), eb, capacity=4),
+        "fused_compress_strict": lambda: kernels.fused_compress_strict(
+            torch.empty(100, device=meta), eb, capacity=4, outlier_capacity=1),
         "fused_shuffle_encode": lambda: kernels.fused_shuffle_encode(
             torch.empty(4096, dtype=torch.uint16, device=meta), capacity=4),
         "fused_decompress": lambda: kernels.fused_decompress(

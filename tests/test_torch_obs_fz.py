@@ -2,14 +2,17 @@
 
 * **Stage leaves by route.** Paper mode (relative bound): ``fz.stage.resolve_eb``
   then K4's ``fz.stage.fused_compress``; ``compress_with_eb`` resolves nothing;
-  strict mode: ``fz.stage.dual_quantize`` then ``fz.stage.fused_shuffle_encode``,
-  in turn; the staged route: ``fz.stage.quantize`` and ``fz.stage.shuffle_encode``.
+  strict mode: strict K4's ``fz.stage.fused_compress`` with ``outliers=`` (the
+  channel's slots; on the CPU its plain version, ``dual_quantize`` then K5's,
+  runs inside it); the staged route: ``fz.stage.quantize`` and
+  ``fz.stage.shuffle_encode``.
   ``used_bytes()`` is the leaf ``fz.used_bytes``, outside the entry span.
 * **The entry span holds the whole call**: a slowed input preparation or route
   lookup (monkeypatched) lies inside it, for every entry point.
 * **Host syncs by site** (``fz_host_syncs``) for one compress and its size read:
-  paper 2, strict 3, staged strict 4; the kernels' plain versions count nothing
-  (K4 and K5 read nothing on the card).
+  paper 2, strict 3 (the plain version's ``nonzero``; strict K4 reads nothing
+  on the card), staged strict 4; the other plain versions count nothing (K4
+  and K5 read nothing on the card).
 * **Nothing recorded** under ``obs.disabled()`` or at trace time.
 * **GC**: a forced collection counts in ``gc_collections`` / ``gc_pause_ms``,
   writes no ring event, and shows as a ``py.gc`` range inside the enclosing
@@ -63,8 +66,7 @@ ROUTES = {
     "paper-rel": (PAPER, False, "fused",
                   ["fz.stage.resolve_eb", "fz.stage.fused_compress"], "fz.stage.fused_decompress"),
     "paper-abs": (ABS, True, "fused", ["fz.stage.fused_compress"], "fz.stage.fused_decompress"),
-    "strict": (STRICT, False, "fused",
-               ["fz.stage.resolve_eb", "fz.stage.dual_quantize", "fz.stage.fused_shuffle_encode"],
+    "strict": (STRICT, False, "fused", ["fz.stage.resolve_eb", "fz.stage.fused_compress"],
                "fz.stage.fused_decompress"),
     "staged": (STAGED, False, "staged",
                ["fz.stage.resolve_eb", "fz.stage.quantize", "fz.stage.shuffle_encode"],
@@ -92,7 +94,7 @@ def test_stage_leaves_of_each_route(route):
         under.setdefault(e["parent"], []).append(e)
     assert [e["name"] for e in under["fz.compress"]] == stages
     assert [e["name"] for e in under["fz.decompress"]] == [decode_stage]
-    assert all(e["args"] == {"backend": "cpu"} for e in under["fz.compress"])
+    assert all(e["args"] == {"backend": "cpu", **_outliers(e, cfg)} for e in under["fz.compress"])
     assert [e["name"] for e in under[None]] == ["fz.compress", "fz.used_bytes", "fz.decompress"]
     top = {e["name"]: e for e in under[None]}
     assert top["fz.compress"]["args"] == {"n": N, "path": path}
@@ -106,6 +108,26 @@ def test_stage_leaves_of_each_route(route):
     assert leaves[-1]["ts"] + leaves[-1]["dur"] <= outer["ts"] + outer["dur"] + 1e-3
     if route == "strict":
         assert int(c.n_outliers) > 0          # the channel is in use
+
+
+def _outliers(stage: dict, cfg) -> dict:
+    """The ``outliers=`` attribute a compress leaf carries: strict K4's slots."""
+    if stage["name"] == "fz.stage.fused_compress" and cfg.exact_outliers:
+        return {"outliers": cfg.outlier_capacity(N)}
+    return {}
+
+
+def test_strict_leaf_carries_its_outlier_slots():
+    """Strict mode's one leaf says how many outlier slots its channel has; paper
+    mode's K4 leaf says nothing of outliers."""
+    for cfg, want in ((STRICT, {"backend": "cpu", "outliers": N // 256}),
+                      (fz.FZConfig(eb=1e-5, outlier_frac=1 / 64),
+                       {"backend": "cpu", "outliers": N // 64}),
+                      (PAPER, {"backend": "cpu"})):
+        obs.clear_events()
+        _compress(cfg)
+        (stage,) = [e for e in spans.events() if e["name"] == "fz.stage.fused_compress"]
+        assert stage["args"] == want
 
 
 PAUSE_S = 0.03
