@@ -16,12 +16,18 @@ Each of the call's three launch sites registers its spec builder here
 (``fused_decompress.bin_residuals``, ``.decode_scan_rows``,
 ``.scan_columns``); :func:`specs` lists the launches of one call, the column
 passes from :func:`column_passes`.
+
+While ``obs`` records, each call on the card counts its column passes in
+``fz_column_passes{stash=1|0}``: stashed (the strip's rows kept in shared
+memory) or read twice from HBM (:func:`column_stash`). No device read.
 """
 from __future__ import annotations
 
 import torch
 
 from ..analysis.kernelspec import KernelSpec, register_spec
+from ..obs import registry as _reg
+from ..obs import spans
 from . import build, ref
 from .fused_compress import _check_eb, _code_mode, FLAG_WORDS_PER_TILE, MAX_N, THREADS, TILE
 
@@ -44,6 +50,25 @@ def column_passes(shape) -> list[tuple[int, int, int]]:
             inner *= b
         out.append((dims[a], inner, outer))
     return out
+
+
+_stash: dict = {}     # shape -> the fz_column_passes increments of a call
+
+
+def column_stash(shape: tuple) -> tuple:
+    """The ``fz_column_passes`` increments of one call on the card at ``shape``,
+    as (labels, n): a pass is stashed where the library's
+    ``fz_scan_columns_smem(len)`` is not 0. Worked out once a shape (the
+    library's query needs the card)."""
+    got = _stash.get(shape)
+    if got is None:
+        lib = build.library(_SOURCE)
+        lens = [p[0] for p in column_passes(shape)]
+        unstashed = sum(lib.fz_scan_columns_smem(n) == 0 for n in lens)
+        got = _stash[shape] = tuple((labels, k) for labels, k in
+                                    (({"stash": 1}, len(lens) - unstashed),
+                                     ({"stash": 0}, unstashed)) if k)
+    return got
 
 
 @register_spec("fused_decompress.bin_residuals")
@@ -137,6 +162,9 @@ def fused_decompress(bitflags: torch.Tensor, payload: torch.Tensor, eb: torch.Te
         out.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "fz_fused_decompress", rc)
     fused_decompress.launches += 1
+    if _reg._enabled:         # the guard of core/fz.py's dispatch count
+        for labels, k in column_stash(shape):
+            spans.count("fz_column_passes", labels, k)
     return out
 
 

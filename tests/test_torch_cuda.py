@@ -272,8 +272,12 @@ def test_fused_decompress_matches_plain(cuda, shape, code_mode, capacity_frac, o
 
 
 # rows longer than a tile, rows of one element, the serving page (a flattened
-# 1-D bfloat16 page of 2 x 32 layers x 64 positions x 4 KV heads x 128)
-K6_SHAPES = [(2**16 + 3,), (3, 9000), (4100, 1), (2, 3, 1), (5, 1, 7), (2097152,)]
+# 1-D bfloat16 page of 2 x 32 layers x 64 positions x 4 KV heads x 128),
+# QMCPACK's rows of 69 at two orbitals (an axis-1 pass of three strips), and an
+# axis-0 pass of 1000 rows (unstashed: 1000 x 128 bytes > 96 KB) over 345
+# columns (its last strip partly live)
+K6_SHAPES = [(2**16 + 3,), (3, 9000), (4100, 1), (2, 3, 1), (5, 1, 7), (2097152,),
+             (230, 69, 69), (1000, 5, 69)]
 
 
 def _outlier_slots(n, kind, seed):
@@ -591,6 +595,49 @@ def test_fz_host_syncs_count_the_cards_syncs(cuda, strict):
         with obs.disabled():
             off = _syncs(call)
         assert on == off
+    finally:
+        obs.reset()
+        obs.clear_events()
+
+
+# shape -> (stashed, unstashed) column passes of K6
+COLUMN_STASH = {(70000,): (0, 0), (37, 130): (1, 0), (230, 69, 69): (2, 0),
+                (1000, 5, 69): (1, 1)}
+
+
+@pytest.mark.parametrize("shape", list(COLUMN_STASH))
+def test_column_pass_counter_matches_the_stash_query_and_the_trace(cuda, shape, tmp_path):
+    """Two decompress calls count ``fz_column_passes{stash}`` as
+    ``column_passes(shape)`` and the library's ``fz_scan_columns_smem`` say,
+    and the profiler's trace holds one ``scan_columns`` kernel a counted pass."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.kernels import build, fused_decode
+    obs.reset()
+    obs.clear_events()
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        x = torch.rand(shape, generator=gen, device=cuda).cumsum(-1)
+        cfg = FZConfig(exact_outliers=False)
+        c = compress(x, cfg)
+        obs.reset()
+        obs.clear_events()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                decompress(c, cfg)
+            torch.cuda.synchronize()
+        stashed, unstashed = COLUMN_STASH[shape]
+        lens = [p[0] for p in fused_decode.column_passes(shape)]
+        smem = [build.query("fz_decompress.cu", "fz_scan_columns_smem", (n,)) for n in lens]
+        assert (sum(b > 0 for b in smem), sum(b == 0 for b in smem)) == (stashed, unstashed)
+        counters = obs.snapshot()["counters"]
+        assert counters.get("fz_column_passes{stash=1}", 0) == 2 * stashed
+        assert counters.get("fz_column_passes{stash=0}", 0) == 2 * unstashed
+        prof.export_chrome_trace(str(tmp_path / "trace.json"))
+        evs = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+        launched = [e for e in evs if e.get("cat") == "kernel" and "scan_columns" in e["name"]]
+        assert len(launched) == 2 * (stashed + unstashed)
     finally:
         obs.reset()
         obs.clear_events()
