@@ -36,7 +36,11 @@ Phases (each prints its own lines):
      along the leading axis, the same dtypes, places and code modes; K5 at
      tile counts around one wave of its CTAs, capacity 1.0 and 0.25, its
      payload allocated on a freed block of 0xFFFF (a tail left unzeroed would
-     show); and K2/K3 at odd tile counts;
+     show); K2/K3 at odd tile counts; and the bound's range pass (range_eb)
+     against ``resolve_eb``'s torch ops at the HACC field's size (280,953,867,
+     drawn on the card), Nyx's and (100, 500, 500), float32 and bfloat16, own
+     allocation and 3 elements past a 16-byte boundary, with ``torch.aminmax``
+     and the same tail (the library's one-read form) giving the same bits;
   3. run the main paths through the public entry points (``compress`` /
      ``decompress``) on SDRBench-sized proxies at rel eb 1e-2, 1e-3, 1e-4,
      strict and paper mode: the fused route (the default) and the staged
@@ -55,13 +59,15 @@ Phases (each prints its own lines):
      strict mode (strict K4) and paper mode (K4);
   5. the kernels' launch counts on each path of phases 3 and 3b (counts set
      to 0 just before each path's calls and read just after), each kernel
-     above 0 on its path;
+     above 0 on its path, the range pass on every compress path (fused,
+     staged, cold and batch);
   6. CUDA-event times at (100, 500, 500): each kernel, its plain version and
      its bound (K4, strict K4 and K5 write their whole capacity-sized
      payload, so their bound counts it); strict K4 also at the HACC field's
      size (280,953,867 float32, rel eb 1e-5); K5 also at a quarter capacity,
-     one tile and one wave plus a tile; compress/decompress GB/s and ratio of
-     the fused, staged and plain routes;
+     one tile and one wave plus a tile; the range pass also at the HACC and
+     Nyx fields, against the torch ops and ``torch.aminmax`` with the tail;
+     compress/decompress GB/s and ratio of the fused, staged and plain routes;
   7. K7 flash-decode against its plain version (the same split of the pages
      and combine) on the card at 2e-4 (float32 sums in another order): the
      serving geometry (KVH 4, G 8, D 128, pages of 64, bfloat16, 4 lanes,
@@ -360,14 +366,15 @@ FP32_OPS_PER_S = 67e12        # H100 SXM non-tensor float32 rate (NVIDIA data sh
 # byte bound at every shape used here.
 OPS_PER_CODE = {"lorenzo_quant": 12, "bitshuffle_flag": 20, "bitunshuffle_tiles": 16,
                 "fused_compress": 32, "fused_compress_strict": 36, "fused_shuffle_encode": 20,
-                "fused_decompress": 24}
+                "fused_decompress": 24, "range_eb": 2}
 # the path each kernel runs on (K5 was the fused path's strict stage; strict
 # K4 replaced it there, so phase 5 asserts it no longer launches; phase 2 holds it)
 KERNEL_PATH = {"lorenzo_quant": "staged", "bitshuffle_flag": "staged",
                "bitunshuffle_tiles": "staged", "fused_compress": "fused",
                "fused_compress_strict": "fused", "fused_shuffle_encode": "fused",
-               "fused_decompress": "fused", "flash_decode": "serving"}
+               "fused_decompress": "fused", "flash_decode": "serving", "range_eb": "fused"}
 OFF_PATH = {"fused_shuffle_encode"}
+HACC_N = 280_953_867          # the HACC field's particles (SDRBench)
 K7_TOL = 2e-4              # K7 vs its plain version: float32 sums in another order
 # K7 cases: B, H, KVH, D, pages P (or slice length S), page size (0: the
 # contiguous entry), dtype, lengths, kv_tile, shard_offset
@@ -1065,6 +1072,57 @@ def serving_phases(card, dev, drive, path_launches, max_err, cuda_ms, device_ms,
     serving = {"model": model, "params": params, "trace_cfg": trace_cfg,
                "plain_snapshot": plain_obs["snapshot"], "plain_stats": st_p}
     return k7_row, k6_page, k4_page, serving
+
+
+def aminmax_eb(x, eb_rel: float):
+    """The relative bound from ``torch.aminmax`` (one read, the library's
+    form) and ``resolve_eb``'s scalar tail: the range pass's library rival."""
+    import torch
+    lo, hi = torch.aminmax(x)
+    hi, lo = hi.to(torch.float32), lo.to(torch.float32)
+    eb = torch.maximum(hi - lo, torch.maximum(hi.abs(), lo.abs())) \
+        * torch.full((), eb_rel, dtype=torch.float32, device=x.device)
+    return torch.clamp(eb, min=1e-30)
+
+
+def hacc_field(dev, seed: int):
+    """A particle proxy of the HACC field's size drawn on the card (softplus of
+    a wide normal: positive, heavy upper tail)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.log1p(torch.exp(2.0 * torch.randn(HACC_N, generator=gen, device=dev)))
+
+
+def range_eb_checks(dev, fields, hold) -> int:
+    """Phase 2's range pass (``kernels.range_eb``) against its plain version,
+    ``resolve_eb``'s torch ops on the card, and ``aminmax_eb``, bit for bit:
+    at the HACC field's size, Nyx's and (100, 500, 500), float32 and
+    bfloat16, at the data's own allocation and 3 elements past a 16-byte
+    boundary, at rel eb 1e-3 and 1e-5. Returns the number of cases."""
+    import torch
+    import repro_torch as rt
+    from repro_torch import kernels
+    cases = 0
+    for label, x32 in (("HACC", hacc_field(dev, 3)), ("Nyx", fields["Nyx-like turbulent"]),
+                       ("Hurricane", fields["Hurricane-like smooth"])):
+        for dtype in (torch.float32, torch.bfloat16):
+            own = x32.to(dtype)
+            off = torch.empty(own.numel() + 3, dtype=dtype, device=dev)[3:].view(own.shape)
+            off.copy_(own)
+            for where, x in (("own allocation", own), ("3 elements off 16 B", off)):
+                for eb_rel in (1e-3, 1e-5):
+                    what = f"{label} {tuple(x.shape)} {dtype} {where} rel eb {eb_rel}"
+                    plain = rt.resolve_eb(x, rt.FZConfig(eb=eb_rel, use_kernels=False))
+                    hold("range_eb", kernels.range_eb(x, eb_rel), plain, what)
+                    if not torch.equal(aminmax_eb(x, eb_rel).view(torch.int32),
+                                       plain.view(torch.int32)):
+                        raise AssertionError(f"torch.aminmax and the tail differ from the "
+                                             f"torch ops' bound at {what}")
+                    cases += 1
+            del own, off
+        del x32
+    torch.cuda.synchronize()
+    return cases
 
 
 def paper_comparison(card, dev, fields, cuda_ms, device_ms) -> None:
@@ -1779,6 +1837,7 @@ KERNEL_KINDS = (                  # (kind, substrings of the profiler's kernel n
     ("K4 encode_tiles", ("encode_tiles",)),
     ("K6 decode_scan_rows/bin_residuals/scan_columns",
      ("decode_scan_rows", "bin_residuals", "scan_columns")),
+    ("the bound's range pass", ("range_eb",)),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
     ("NCCL", ("nccl",)),
     ("sort (embedding backward)", ("RadixSort", "radix_sort", "embedding")),
@@ -2646,10 +2705,10 @@ def recurrent_phase(card, dev) -> dict:
         parks, lk = len(seen_k), launches[arch]
         want = parks * len(fz_names)
         if parks != n_new - 1 or not fz_names or not (
-                lk["fused_compress"] == lk["fused_decompress"] == want) or \
-                sum(lk.values()) != 2 * want:
+                lk["fused_compress"] == lk["fused_decompress"] == lk["range_eb"] == want) or \
+                sum(lk.values()) != 3 * want:
             raise AssertionError(f"{arch}: {parks} parks of {fz_names} launched {lk}, not K4 = "
-                                 f"K6 = {want}")
+                                 f"K6 = the range pass = {want}")
         last = seen_k[-1]
         leaves = ", ".join(
             f"{name} {tuple(last[0][name].shape)} {str(last[0][name].dtype).replace('torch.', '')}"
@@ -3675,6 +3734,12 @@ def main() -> int:
            f"code modes, capacity 1.0 and 0.25); K1 there and at its walk's edge shapes "
            f"{K1_WALK_SHAPES} in {k1_cases} cases (the same dtypes, places and code modes); K2 "
            f"and K3 at {K3_TILE_COUNTS} tiles of random 16-bit codes ({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    eb_cases = range_eb_checks(dev, fields, hold)
+    say(2, f"the range pass bit-identical to resolve_eb's torch ops (and torch.aminmax with "
+           f"the same tail) at the HACC field's size ({HACC_N}), Nyx's and {TIMING_SHAPE} in "
+           f"{eb_cases} cases (float32 and bfloat16, own allocation and 3 elements off 16 "
+           f"bytes, rel eb 1e-3 and 1e-5) ({time.time() - t0:.1f} s)")
 
     # -- 3. the main paths: fused and staged routes ---------------------------
     # each path's launches: counts set to 0 just before its calls, read just after
@@ -3836,6 +3901,9 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the {KERNEL_PATH[name]} path")
     if path_launches["cold and batch"]["fused_decompress"] <= 0:
         raise AssertionError("decompress_bytes did not launch fused_decompress")
+    for path in ("fused", "staged", "cold and batch"):       # a relative compress on each
+        if path_launches[path]["range_eb"] <= 0:
+            raise AssertionError(f"range_eb was not launched on the {path} path")
 
     # -- 6. times at (100, 500, 500) ------------------------------------------
     def device_ms(fn, iters=20, warmup=3):
@@ -3937,14 +4005,20 @@ def main() -> int:
             lambda: ref.fused_decompress_ref(bf, payload, eb, shape=tuple(x.shape),
                                              outlier_idx=oidx, outlier_val=oval),
             flag_bytes + used + oidx.numel() * 8 + n * 4),
+        "range_eb": (
+            lambda: kernels.range_eb(x, 1e-3),
+            lambda: rt.resolve_eb(x, rt.FZConfig(eb=1e-3, use_kernels=False)),
+            n * 4 + 4),
     }
-    sources = {"lorenzo_quant": ("fz_staged.cu", "lorenzo_quant.py:111"),
-               "bitshuffle_flag": ("fz_staged.cu", "bitshuffle_flag.py:86"),
-               "bitunshuffle_tiles": ("fz_staged.cu", "bitshuffle_flag.py:109"),
-               "fused_compress": ("fz_compress.cu", "fused_compress.py:246"),
-               "fused_compress_strict": ("fz_compress.cu", "ops.py:127"),
-               "fused_shuffle_encode": ("fz_compress.cu", "fused_compress.py:324"),
-               "fused_decompress": ("fz_decompress.cu", "fused_decode.py:153")}
+    library = {"range_eb": lambda: aminmax_eb(x, 1e-3)}
+    sources = {"lorenzo_quant": ("fz_staged.cu", "kernels/lorenzo_quant.py:111"),
+               "bitshuffle_flag": ("fz_staged.cu", "kernels/bitshuffle_flag.py:86"),
+               "bitunshuffle_tiles": ("fz_staged.cu", "kernels/bitshuffle_flag.py:109"),
+               "fused_compress": ("fz_compress.cu", "kernels/fused_compress.py:246"),
+               "fused_compress_strict": ("fz_compress.cu", "kernels/ops.py:127"),
+               "fused_shuffle_encode": ("fz_compress.cu", "kernels/fused_compress.py:324"),
+               "fused_decompress": ("fz_decompress.cu", "kernels/fused_decode.py:153"),
+               "range_eb": ("fz_compress.cu", "core/fz.py:149")}
     rows = []
     for name, (kern, plain, nbytes) in work.items():
         ms, call_ms, plain_ms = device_ms(kern), cuda_ms(kern), cuda_ms(plain, iters=5)
@@ -3958,15 +4032,15 @@ def main() -> int:
         say(6, f"{card} | {name} per call on the card: {breakdown(kern)}")
         src, replaces = sources[name]
         rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-                     "replaces": f"src/repro/kernels/{replaces}",
+                     "replaces": f"src/repro/{replaces}",
                      "launches": path_launches[KERNEL_PATH[name]][name],
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": device_ms(library[name]) if name in library else None})
     # strict K4 at the HACC field's size (the particle proxy drawn on the card,
     # rel eb 1e-5, the default channel): the strict benchmark cell's kernel
-    hacc_n = 280_953_867
-    gen = torch.Generator(device=dev).manual_seed(0)
-    xh = torch.log1p(torch.exp(2.0 * torch.randn(hacc_n, generator=gen, device=dev)))
+    hacc_n = HACC_N
+    xh = hacc_field(dev, 0)
     hcfg = rt.FZConfig(eb=1e-5)
     ebh = rt.resolve_eb(xh, hcfg)
     caph, ocaph = hcfg.payload_capacity(hacc_n), hcfg.outlier_capacity(hacc_n)
@@ -3981,7 +4055,17 @@ def main() -> int:
            f"{ocaph} slots, bound {bound_h:.4f} ms by bytes ({nbytes_h / 1e6:.1f} MB), "
            f"{100 * bound_h / ms_h:.1f}% of bound")
     say(6, f"{card} | fused_compress_strict per call at the HACC field: {breakdown(k4s)}")
-    del xh, k4s
+    del k4s
+    plain_eb = rt.FZConfig(eb=1e-3, use_kernels=False)
+    for what, xf in (("the HACC field", xh), ("the Nyx field", fields["Nyx-like turbulent"])):
+        bound_r = xf.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        ms_r = device_ms(lambda: kernels.range_eb(xf, 1e-3))
+        say(6, f"{card} | range_eb at {what} ({xf.numel()} float32): {ms_r:.4f} ms on the card, "
+               f"plain (resolve_eb's torch ops) "
+               f"{device_ms(lambda: rt.resolve_eb(xf, plain_eb)):.4f} ms, torch.aminmax and the "
+               f"tail {device_ms(lambda: aminmax_eb(xf, 1e-3)):.4f} ms, bound {bound_r:.4f} ms by "
+               f"bytes (one read), {100 * bound_r / ms_r:.1f}% of bound")
+    del xh
     # K5 at its tail cases: a quarter capacity (short of nnz: no tail), one
     # tile, one wave plus a tile
     k5_tail = [(f"{TIMING_SHAPE} capacity 0.25", flat,

@@ -154,6 +154,7 @@ HOT: tuple[tuple[str, str], ...] = (
     ("repro_torch/core/fz.py", "FZCompressed.to"),
     ("repro_torch/core/fz.py", "FZCompressed.used_bytes"),
     ("repro_torch/core/fz.py", "FZCompressed.compression_ratio"),
+    ("repro_torch/kernels/ops.py", "relative_eb"),
     ("repro_torch/kernels/ops.py", "fused_compress_stages"),
     ("repro_torch/kernels/ops.py", "fused_decompress"),
     ("repro_torch/kernels/ops.py", "lorenzo_quantize"),
@@ -164,6 +165,7 @@ HOT: tuple[tuple[str, str], ...] = (
     ("repro_torch/kernels/fused_compress.py", "_check_data"),
     ("repro_torch/kernels/fused_compress.py", "fused_shuffle_encode"),
     ("repro_torch/kernels/fused_compress.py", "_outputs"),
+    ("repro_torch/kernels/fused_compress.py", "range_eb"),
     ("repro_torch/kernels/fused_decode.py", "fused_decompress"),
     ("repro_torch/kernels/lorenzo_quant.py", "lorenzo_quant"),
     ("repro_torch/kernels/bitshuffle_flag.py", "bitshuffle_flag"),

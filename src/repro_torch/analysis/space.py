@@ -71,7 +71,7 @@ def _arch_points():
 def fz_specs(shape, dtype: str) -> list[KernelSpec]:
     """Every K1-K6 launch of both routes at one FZ input: K1 (the launch it
     makes), K2, K3, K4, K5, K6's launches (with outlier slots: all three of
-    its launch sites) and strict K4."""
+    its launch sites), strict K4 and the bound's range pass."""
     n = 1
     for s in shape:
         n *= int(s)
@@ -83,7 +83,8 @@ def fz_specs(shape, dtype: str) -> list[KernelSpec]:
             fc.fused_compress_spec(shape, dtype, point),
             fc.fused_shuffle_encode_spec(n_tiles, point),
             *module("fused_decode").specs(shape, max(1, n // 256), point),
-            fc.fused_compress_strict_spec(shape, dtype, point)]
+            fc.fused_compress_strict_spec(shape, dtype, point),
+            fc.range_eb_spec(shape, dtype, point)]
 
 
 def attention_specs() -> list[KernelSpec]:

@@ -184,17 +184,15 @@ def resolve_eb(data: torch.Tensor, cfg: FZConfig) -> torch.Tensor:
     """Absolute error bound as a float32 scalar on the data's device.
 
     ``rel``: ``eb * max(range, max|x|)`` in float32, floored at 1e-30, as the
-    reference. Max and min are taken before widening bfloat16, which is
-    exact. Nothing here waits on the card.
+    reference (``kernels/ops.py:relative_eb``): with ``use_kernels`` on the
+    card, the range pass, one read of the data and one launch; the torch ops
+    on the CPU, on ``meta`` tensors and on the plain route. Nothing here waits
+    on the card.
     """
     if cfg.eb_mode == "abs":
         return torch.full((), cfg.eb, dtype=torch.float32, device=data.device)
     if cfg.eb_mode == "rel":
-        hi = data.amax().to(torch.float32)
-        lo = data.amin().to(torch.float32)
-        eb = torch.maximum(hi - lo, torch.maximum(hi.abs(), lo.abs())) \
-            * torch.full((), cfg.eb, dtype=torch.float32, device=data.device)
-        return torch.clamp(eb, min=1e-30)
+        return ops.relative_eb(data, cfg.eb, use_kernels=cfg.use_kernels)
     raise ValueError(f"unknown eb_mode {cfg.eb_mode!r}")
 
 

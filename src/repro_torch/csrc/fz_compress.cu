@@ -1,4 +1,5 @@
-// K4 fused_compress and K5 fused_shuffle_encode for Hopper (sm_90a).
+// K4 fused_compress, K5 fused_shuffle_encode and the bound's range pass for
+// Hopper (sm_90a).
 //
 // Replace the Pallas TPU kernels repro/kernels/fused_compress.py:fused_compress
 // (K4: float data -> quantize + Lorenzo + bitshuffle + zero-block flags +
@@ -86,6 +87,18 @@
 // unsigned 32-bit arithmetic, bf16 widens by its raw bits; K1 computes the
 // same codes (fz_staged.cu), and chip_smoke.py holds both against their plain
 // versions. Build without --use_fast_math.
+//
+// The bound's range pass (range_eb), which replaces no TPU kernel: the
+// reference resolves a relative bound with jnp max, min and scalar ops, which
+// the port ran as torch's amax and amin, two full reads of the field, and
+// about nine scalar launches. One grid-stride read of 16-byte loads, a few in
+// flight a thread, keeps min and max in float32 (bf16 widens exactly); the
+// last CTA to finish reduces the CTAs' pairs and forms the bound in the same
+// launch, op by op as core/fz.py's torch expression. Bound: bytes, the field
+// read once. Min and max are exact, so the order of the reduction does not
+// change the bits; both propagate NaN, as amax and amin do.
+#include <algorithm>
+
 #include "fz_windows.cuh"
 
 namespace fz {
@@ -405,6 +418,128 @@ shuffle_encode_tiles(const uint16_t* __restrict__ codes, uint32_t* __restrict__ 
   }
 }
 
+// -- The bound's range pass ---------------------------------------------------
+
+constexpr int RANGE_UNROLL = 4;          // 16-byte loads in flight a thread
+constexpr int RANGE_CTAS_PER_SM = 4;
+constexpr int RANGE_MAX_CTAS = 1024;     // the CTAs' pairs the caller's scratch holds
+
+// max and min that return NaN if either input is NaN, as torch.amax, amin,
+// maximum and clamp do (fmaxf and fminf drop it). Their pick between -0 and
+// +0 cannot reach the bound: a zero there is floored at 1e-30, and a NaN
+// leaves the multiply as the card's one NaN, as torch's does.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ void fold(float v, float& lo, float& hi) {
+  lo = min_nan(lo, v);
+  hi = max_nan(hi, v);
+}
+
+template <bool BF>
+__device__ __forceinline__ float element(const void* x, long long e) {
+  if constexpr (BF) return widen_bf16(static_cast<const uint16_t*>(x)[e]);
+  else return static_cast<const float*>(x)[e];
+}
+
+// The 4 floats or 8 bf16 values of a 16-byte load.
+template <bool BF>
+__device__ __forceinline__ void fold16(const uint4 v, float& lo, float& hi) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (BF) {
+      fold(widen_bf16(w[k] & 0xFFFFu), lo, hi);
+      fold(__uint_as_float(w[k] & 0xFFFF0000u), lo, hi);
+    } else {
+      fold(__uint_as_float(w[k]), lo, hi);
+    }
+  }
+}
+
+// The CTA's min and max, in every thread.
+__device__ __forceinline__ void block_range(float& lo, float& hi) {
+  __shared__ float s_lo[WARPS], s_hi[WARPS];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min_nan(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max_nan(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  __syncthreads();                                  // an earlier call's reads are done
+  if ((threadIdx.x & 31) == 0) {
+    s_lo[threadIdx.x >> 5] = lo;
+    s_hi[threadIdx.x >> 5] = hi;
+  }
+  __syncthreads();
+  lo = s_lo[0];
+  hi = s_hi[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) {
+    lo = min_nan(lo, s_lo[w]);
+    hi = max_nan(hi, s_hi[w]);
+  }
+}
+
+// core/fz.py's torch expression, op by op in float32 with nothing contracted:
+// clamp(maximum(hi - lo, maximum(|hi|, |lo|)) * eb_rel, min=1e-30).
+__device__ __forceinline__ float rel_bound(float lo, float hi, float eb_rel) {
+  const float m = max_nan(__fsub_rn(hi, lo), max_nan(fabsf(hi), fabsf(lo)));
+  return max_nan(__fmul_rn(m, eb_rel), static_cast<float>(1e-30));
+}
+
+// x: n float32 or bf16 (BF) values, the first `head` of them before the first
+// 16-byte boundary. Each CTA writes its pair to part; the last to take a
+// ticket reduces the pairs and writes the bound to eb.
+template <bool BF>
+__global__ void __launch_bounds__(THREADS, RANGE_CTAS_PER_SM)
+range_eb(const void* __restrict__ x, long long n, int head, float eb_rel,
+         float2* __restrict__ part, unsigned* ticket, float* __restrict__ eb) {
+  constexpr int VEC = BF ? 8 : 4;
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  const long long tid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  const long long nvec = (n - head) / VEC, tail = head + nvec * VEC;
+  float lo = __uint_as_float(0x7F800000u), hi = -lo;
+  // the scalars before the first boundary and after the last whole vector
+  if (tid < head) fold(element<BF>(x, tid), lo, hi);
+  if (tid < n - tail) fold(element<BF>(x, tail + tid), lo, hi);
+  const uint4* v = reinterpret_cast<const uint4*>(static_cast<const char*>(x) +
+                                                  head * static_cast<long long>(16 / VEC));
+  long long i = tid;
+  for (; i + (RANGE_UNROLL - 1) * stride < nvec; i += RANGE_UNROLL * stride) {
+    uint4 r[RANGE_UNROLL];
+#pragma unroll
+    for (int k = 0; k < RANGE_UNROLL; ++k) r[k] = __ldg(v + i + k * stride);
+#pragma unroll
+    for (int k = 0; k < RANGE_UNROLL; ++k) fold16<BF>(r[k], lo, hi);
+  }
+  for (; i < nvec; i += stride) fold16<BF>(__ldg(v + i), lo, hi);
+  block_range(lo, hi);
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = make_float2(lo, hi);
+    __threadfence();                                // the pair before the ticket
+  }
+  if (take_ticket(ticket) != gridDim.x - 1) return;
+  __threadfence();
+  lo = __uint_as_float(0x7F800000u);
+  hi = -lo;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += THREADS) {
+    const float2 p = __ldcg(part + b);              // from L2, past this SM's L1
+    lo = min_nan(lo, p.x);
+    hi = max_nan(hi, p.y);
+  }
+  block_range(lo, hi);
+  if (threadIdx.x == 0) *eb = rel_bound(lo, hi, eb_rel);
+}
+
 }  // namespace fz
 
 namespace {
@@ -547,6 +682,37 @@ int fz_fused_shuffle_encode(const uint16_t* codes, long long n_tiles, uint32_t* 
     fz::shuffle_encode_tiles<false><<<grid, fz::K5_THREADS, 0, s>>>(codes, bitflags, payload,
                                                                   capacity, nnz, scratch,
                                                                   ticket, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bound's range pass. x: n float32 or bf16 (is_bf16, raw bits) values,
+// 1 <= n. eb: device pointer that gets clamp(max(hi - lo, max(|hi|, |lo|)) *
+// eb_rel, 1e-30), hi and lo the values' max and min, in float32. scratch: 16
+// bytes (the ticket, zeroed here), then RANGE_MAX_CTAS float pairs. One memset
+// and one launch of at most RANGE_CTAS_PER_SM CTAs an SM. Returns a
+// cudaError_t.
+int fz_range_eb(const void* x, int is_bf16, long long n, float eb_rel, float* eb,
+                void* scratch, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int esize = is_bf16 ? 2 : 4, vec = 16 / esize;
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(x) % 16) / esize;
+  const int head = static_cast<int>(std::min<long long>(mis ? vec - mis : 0, n));
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long per_cta = static_cast<long long>(fz::THREADS) * fz::RANGE_UNROLL;
+  const long long want = std::max<long long>(1, ((n - head) / vec + per_cta - 1) / per_cta);
+  const unsigned grid = static_cast<unsigned>(
+      std::min<long long>(want, std::min(sms * fz::RANGE_CTAS_PER_SM, fz::RANGE_MAX_CTAS)));
+  unsigned* ticket = static_cast<unsigned*>(scratch);
+  float2* part = reinterpret_cast<float2*>(static_cast<char*>(scratch) + 16);
+  e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (is_bf16)
+    fz::range_eb<true><<<grid, fz::THREADS, 0, s>>>(x, n, head, eb_rel, part, ticket, eb);
+  else
+    fz::range_eb<false><<<grid, fz::THREADS, 0, s>>>(x, n, head, eb_rel, part, ticket, eb);
   return static_cast<int>(cudaGetLastError());
 }
 

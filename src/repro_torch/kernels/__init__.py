@@ -3,7 +3,8 @@
     lorenzo_quant    -- K1 lorenzo_quant wrapper (staged route)
     bitshuffle_flag  -- K2 bitshuffle_flag and K3 bitunshuffle_tiles wrappers (staged)
     fused_compress   -- K4 fused_compress (paper) and fused_compress_strict (the
-                        outlier channel too), K5 fused_shuffle_encode wrappers
+                        outlier channel too), K5 fused_shuffle_encode wrappers,
+                        and range_eb (the relative bound in one read)
     fused_decode     -- K6 fused_decompress wrapper
     flash_decode     -- K7 flash-decode wrapper (decode attention partials) and its
                         entry points (contiguous and paged)
@@ -19,7 +20,8 @@ import importlib
 
 from .bitshuffle_flag import bitshuffle_flag, bitunshuffle_tiles
 from .flash_decode import flash_decode_partials
-from .fused_compress import fused_compress, fused_compress_strict, fused_shuffle_encode
+from .fused_compress import (fused_compress, fused_compress_strict, fused_shuffle_encode,
+                             range_eb)
 from .fused_decode import fused_decompress
 from .lorenzo_quant import lorenzo_quant
 from . import flash_decode, fused_decode, ops, ref  # noqa: F401  (the reference's submodules)
@@ -31,6 +33,7 @@ WRAPPERS = {
     "fused_compress": fused_compress,
     "fused_compress_strict": fused_compress_strict,
     "fused_shuffle_encode": fused_shuffle_encode,
+    "range_eb": range_eb,
     "fused_decompress": fused_decompress,
     "flash_decode": flash_decode_partials,
 }

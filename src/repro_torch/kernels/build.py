@@ -33,7 +33,7 @@ HEADERS = ("fz_common.cuh", "fz_windows.cuh")
 NVCC_FLAGS = ("-gencode", f"arch=compute_{ARCH[3:]},code={ARCH}", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "fz_compress.cu": {
         "fz_fused_compress": [_P, _I, _I, _L, _L, _L, _P, _I, _P, _P, _L, _P, _P, _P],
@@ -43,6 +43,7 @@ SIGNATURES = {
         "fz_fused_shuffle_encode_ctas": [],
         "fz_fused_compress_smem": [_I, _I, _L, _L, _L, _I],
         "fz_fused_compress_strict_smem": [_I, _I, _L, _L, _L, _I],
+        "fz_range_eb": [_P, _I, _L, _F, _P, _P, _P],
     },
     "fz_decompress.cu": {
         "fz_fused_decompress": [_P, _P, _L, _P, _I, _I, _L, _L, _L, _P, _P, _L, _P, _P,

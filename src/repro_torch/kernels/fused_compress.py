@@ -13,11 +13,17 @@ For a CPU tensor a wrapper runs its plain version (``kernels/ref.py``); for a
 CUDA tensor it launches the kernel on the current stream or raises. Each
 wrapper counts its launches in ``<wrapper>.launches``.
 
+``range_eb`` launches the bound's range pass of the same library: the
+relative bound of ``core/fz.py:resolve_eb`` from one read of the field, the
+same bits as its torch ops (``kernels/ops.py:relative_eb``, which routes
+between the two). It has no plain version (those torch ops are it) and runs
+on the card only.
+
 Each launch registers its :class:`~repro_torch.analysis.kernelspec.KernelSpec`
 builder here (``fused_compress``, ``fused_compress_strict``,
-``fused_shuffle_encode``). K4's dynamic shared bytes are what the C side's
-window plan sets (``fz_windows.cuh``), asked of the library on the card
-(``fz_fused_compress_smem``, ``fz_fused_compress_strict_smem``).
+``fused_shuffle_encode``, ``range_eb``). K4's dynamic shared bytes are what
+the C side's window plan sets (``fz_windows.cuh``), asked of the library on
+the card (``fz_fused_compress_smem``, ``fz_fused_compress_strict_smem``).
 """
 from __future__ import annotations
 
@@ -35,6 +41,11 @@ _CODE_MODES = {"sign_mag": 0, "zigzag": 1}
 WINDOW_MIN_CTAS = 5           # __launch_bounds__ minimum of K4 and K1's tile step
 K5_THREADS = THREADS // 2     # two groups a thread
 K5_MIN_CTAS = 16
+RANGE_UNROLL = 4              # the range pass's 16-byte loads in flight a thread
+RANGE_MIN_CTAS = 4            # its __launch_bounds__ minimum and CTAs an SM
+RANGE_MAX_CTAS = 1024         # the CTAs' pairs its scratch holds (fz_compress.cu)
+_RANGE_SCRATCH_WORDS = 2 + RANGE_MAX_CTAS   # int64: the ticket's 16 bytes, then the pairs
+_RANGE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def dims3(shape) -> tuple[int, int, int]:
@@ -82,6 +93,21 @@ def fused_shuffle_encode_spec(n_tiles: int, point: str = "") -> KernelSpec:
         name="fused_shuffle_encode", module=_SOURCE, symbol="shuffle_encode_tiles",
         grid=(int(n_tiles),), threads=K5_THREADS, min_ctas=K5_MIN_CTAS,
         point=point or f"{n_tiles} tiles", carry="lookback")
+
+
+@register_spec("range_eb")
+def range_eb_spec(shape, dtype: str = "float32", point: str = "") -> KernelSpec:
+    """The range pass (``range_eb``): a grid-stride read, the grid at most
+    ``RANGE_MIN_CTAS`` CTAs an SM (here the H100's 132 SMs), static shared
+    memory only."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    per_cta = THREADS * RANGE_UNROLL * (8 if dtype == "bfloat16" else 4)
+    return KernelSpec(
+        name="range_eb", module=_SOURCE, symbol="range_eb",
+        grid=(min(-(-n // per_cta), 132 * RANGE_MIN_CTAS, RANGE_MAX_CTAS),), threads=THREADS,
+        min_ctas=RANGE_MIN_CTAS, point=point or f"{tuple(shape)} {dtype}")
 
 
 def _code_mode(code_mode: str) -> int:
@@ -220,6 +246,37 @@ def fused_shuffle_encode(codes_flat: torch.Tensor, *, capacity: int):
 
 
 fused_shuffle_encode.launches = 0
+
+
+def range_eb(data: torch.Tensor, eb_rel: float) -> torch.Tensor:
+    """Floating data of any shape on the card -> the float32 scalar
+    ``clamp(max(hi - lo, max(|hi|, |lo|)) * float32(eb_rel), min=1e-30)``,
+    ``hi`` and ``lo`` the data's max and min in float32 (NaN if any value is NaN).
+
+    One read of the data: a 4-byte memset and one launch on the current
+    stream, no host read. Bit-identical to ``kernels/ops.py:relative_eb``'s
+    torch ops. The kernel reads float32 or bfloat16 laid out contiguously;
+    other data is copied so first (float16 and float64 as float32: rounding is
+    monotone, so the extremes round as the torch ops' do).
+    """
+    if data.device.type != "cuda" or not data.is_floating_point() or data.numel() == 0:
+        raise ValueError(f"range_eb takes floating data of one element or more on the card, "
+                         f"got {data.dtype} {tuple(data.shape)} on {data.device}")
+    if data.dtype not in _RANGE_DTYPES:
+        data = data.to(torch.float32)
+    data = data.contiguous()
+    eb = torch.empty((), dtype=torch.float32, device=data.device)
+    scratch = torch.empty(_RANGE_SCRATCH_WORDS, dtype=torch.int64, device=data.device)
+    lib = build.library(_SOURCE)
+    rc = lib.fz_range_eb(data.data_ptr(), int(data.dtype == torch.bfloat16), data.numel(),
+                         eb_rel, eb.data_ptr(), scratch.data_ptr(),
+                         torch.cuda.current_stream(data.device).cuda_stream)
+    build.check(lib, "fz_range_eb", rc)
+    range_eb.launches += 1
+    return eb
+
+
+range_eb.launches = 0
 
 
 def shuffle_encode_ctas() -> int:

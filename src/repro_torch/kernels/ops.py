@@ -27,11 +27,11 @@ where it runs its plain version for a CPU tensor (the plain stages of
 ``fz.stage.fused_compress`` in both modes, with ``outliers=`` (the channel's
 slots) in strict mode; its decompress is ``fz.stage.fused_decompress``. The
 staged route's are ``fz.stage.quantize``, ``fz.stage.shuffle_encode`` and
-``fz.stage.unshuffle``; ``core/fz.py`` adds
-``fz.stage.resolve_eb``. Deliberate difference: in the reference these spans
-run only while jax traces the enclosing fz jit (``cat="jit-trace"``, once a
-compilation); the port has no jit, so they are runtime spans, nested under
-the ``fz.*`` span of every call.
+``fz.stage.unshuffle``; ``core/fz.py`` adds ``fz.stage.resolve_eb``, which
+runs ``relative_eb`` for a relative bound. Deliberate difference: in the
+reference these spans run only while jax traces the enclosing fz jit
+(``cat="jit-trace"``, once a compilation); the port has no jit, so they are
+runtime spans, nested under the ``fz.*`` span of every call.
 
 On ``meta`` tensors (the dry-run's count) K4 and K6 are reached through two
 ``torch.library`` custom ops, ``repro_torch::fused_compress`` and
@@ -53,10 +53,11 @@ from ..core import quant
 from ..obs import spans
 from . import fused_decode as _fd
 from .bitshuffle_flag import bitshuffle_flag, bitunshuffle_tiles
-from .fused_compress import FLAG_WORDS_PER_TILE, TILE, fused_compress, fused_compress_strict
+from .fused_compress import (FLAG_WORDS_PER_TILE, TILE, fused_compress, fused_compress_strict,
+                             range_eb)
 from .lorenzo_quant import lorenzo_quant
 
-__all__ = ["fused_compress_stages", "fused_decompress", "lorenzo_quantize",
+__all__ = ["relative_eb", "fused_compress_stages", "fused_decompress", "lorenzo_quantize",
            "bitshuffle_flag_encode", "bitshuffle", "bitunshuffle"]
 
 
@@ -75,6 +76,22 @@ def backend_label(t: torch.Tensor) -> str:
 def _no_outliers(device: torch.device):
     empty = torch.zeros(0, dtype=torch.int32, device=device)
     return empty, empty, torch.zeros((), dtype=torch.int32, device=device)
+
+
+def relative_eb(data: torch.Tensor, eb_rel: float, *, use_kernels: bool) -> torch.Tensor:
+    """The relative bound of ``core/fz.py:resolve_eb``: ``eb_rel * max(hi - lo,
+    max|x|)`` in float32, floored at 1e-30, ``hi`` and ``lo`` the data's max
+    and min. On the card with the kernels, the range pass (``range_eb``, one
+    read and one launch); else the torch ops below, the same bits: the CPU,
+    ``meta`` tensors (the dry-run) and the plain route. Max and min are taken
+    before the cast to float32, which is monotone."""
+    if use_kernels and data.is_cuda:
+        return range_eb(data, eb_rel)
+    hi = data.amax().to(torch.float32)
+    lo = data.amin().to(torch.float32)
+    eb = torch.maximum(hi - lo, torch.maximum(hi.abs(), lo.abs())) \
+        * torch.full((), eb_rel, dtype=torch.float32, device=data.device)
+    return torch.clamp(eb, min=1e-30)
 
 
 @torch.library.custom_op("repro_torch::fused_compress", mutates_args=())

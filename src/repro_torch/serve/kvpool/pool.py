@@ -289,7 +289,8 @@ class PagePool:
 
     def _ensure_eb(self, sample: torch.Tensor) -> None:
         if self.eb_abs is None:
-            rcfg = fz.FZConfig(eb=self.cfg.eb, eb_mode=self.cfg.eb_mode)
+            rcfg = fz.FZConfig(eb=self.cfg.eb, eb_mode=self.cfg.eb_mode,
+                               use_kernels=self.cfg.use_kernels)
             self.eb_abs = fz.resolve_eb(sample.to(torch.float32).reshape(-1), rcfg)
 
     # -- allocator / refcounts ------------------------------------------------

@@ -227,8 +227,9 @@ def test_specs_take_the_c_sides_bytes(monkeypatch):
 @pytest.mark.parametrize("shape,dtype", space.FZ_SHAPES)
 def test_every_fz_point_resolves_through_the_c_side(monkeypatch, shape, dtype):
     """At each FZ point of the space, with a library to ask: one K1 site (the
-    one the C side picks), every launch site of both routes, and bytes on
-    every spec -- and without one, the data-dependent bytes not measured."""
+    one the C side picks), every launch site of both routes and the bound's
+    range pass, and bytes on every spec -- and without one, the
+    data-dependent bytes not measured."""
     unmeasured = [s.name for s in space.fz_specs(shape, dtype) if s.dynamic_smem is None]
     assert unmeasured and all(s.c_query for s in space.fz_specs(shape, dtype)
                               if s.dynamic_smem is None)
@@ -241,8 +242,8 @@ def test_every_fz_point_resolves_through_the_c_side(monkeypatch, shape, dtype):
                          "fused_shuffle_encode"]
     assert names[5:7] == ["fused_decompress.bin_residuals",
                           "fused_decompress.decode_scan_rows"]
-    assert names[-1] == "fused_compress_strict"
-    assert len(names) == 8 + len(fdec.column_passes(shape))
+    assert names[-2:] == ["fused_compress_strict", "range_eb"]
+    assert len(names) == 9 + len(fdec.column_passes(shape))
     assert all(isinstance(s.dynamic_smem, int) for s in specs)
     assert specs[3].c_query == ("fz_compress.cu", "fz_fused_compress_smem",
                                 (int(dtype == "bfloat16"), len(shape), *fc.dims3(shape), 0))
@@ -284,7 +285,7 @@ def test_cpu_tree_clean_modulo_baseline():
     assert all(r["dynamic_smem"] == "not measured" for r in rep.rows
                if r["name"] not in ("bitshuffle_flag", "bitunshuffle_tiles",
                                     "fused_shuffle_encode", "fused_decompress.bin_residuals",
-                                    "fused_decompress.decode_scan_rows"))
+                                    "fused_decompress.decode_scan_rows", "range_eb"))
 
 
 def test_merge_findings_folds_points():

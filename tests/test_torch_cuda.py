@@ -10,6 +10,14 @@ the same integer work and the same IEEE float divide and multiply. K7
 wrapper's split count (what the wrapper runs for CPU tensors): float32 sums in
 another order; fully masked rows exactly (-1e30, 0, 0).
 
+The bound's range pass (``range_eb``) is held bit for bit to ``resolve_eb``'s
+torch ops on the card and to the benchmark's frozen reference
+(``fzbench/reference/fz_ref.py``): float32 and bfloat16, ranks 1-3, views off
+16 bytes, edge fields, NaN anywhere, one n over 2^28, float16, float64 and
+strided views (copied first); a relative compress holds at most two device
+ops under ``fz.stage.resolve_eb``, launches the pass once a call, and builds
+the container it built against the torch ops' bound.
+
 The wire and checkpoints on the card: ``reduce_stacked`` (K4, K6) equal to
 the plain route, the CPU route and the bucketed form over three steps;
 ``flash_decode_shard``'s per-shard K7 partials combined within 2e-4 of the
@@ -373,7 +381,8 @@ def test_staged_entry_points_launch_the_staged_kernels(cuda, exact_outliers):
     counts = kernels.launch_counts()
     assert counts == {"lorenzo_quant": 0 if exact_outliers else 1, "bitshuffle_flag": 1,
                       "bitunshuffle_tiles": 1, "fused_compress": 0, "fused_compress_strict": 0,
-                      "fused_shuffle_encode": 0, "fused_decompress": 0, "flash_decode": 0}
+                      "fused_shuffle_encode": 0, "range_eb": 1, "fused_decompress": 0,
+                      "flash_decode": 0}
     plain = FZConfig(eb=1e-3, exact_outliers=exact_outliers, use_kernels=False)
     c0 = compress(x, plain)
     for f in c.FIELDS:
@@ -641,6 +650,195 @@ def test_column_pass_counter_matches_the_stash_query_and_the_trace(cuda, shape, 
     finally:
         obs.reset()
         obs.clear_events()
+
+
+def _fz_ref():
+    """The benchmark's frozen plain reference (``fzbench/reference/fz_ref.py``,
+    torch only), loaded once from its file."""
+    import importlib.util
+    import pathlib
+    import sys
+    name = "fzbench_fz_ref"
+    if name not in sys.modules:
+        path = pathlib.Path(__file__).resolve().parents[1] / "fzbench" / "reference" / "fz_ref.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        sys.modules[name] = importlib.util.module_from_spec(spec)   # its dataclasses look it up
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+def _torch_ops_eb(x, eb):
+    """The relative bound by ``resolve_eb``'s torch ops on the card (the plain route)."""
+    from repro_torch import resolve_eb
+    return resolve_eb(x, FZConfig(eb=eb, use_kernels=False))
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def _on_card(x, cuda, dtype, offset):
+    """``x`` as ``dtype`` on the card, a contiguous view ``offset`` elements
+    into its allocation."""
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x.to(dtype))
+    return view
+
+
+# ranks 1-3, n of 1, 7, 4,095, 4,097 and one past a wave of 16-byte loads
+RANGE_SHAPES = [(1,), (7,), (4095,), (4097,), (1, 7), (3, 1365), (17, 241), (1, 1, 1),
+                (3, 3, 455), (2, 17, 241), (1000, 1031)]
+
+
+@pytest.mark.parametrize("shape", RANGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_range_eb_matches_the_torch_ops(cuda, shape, dtype, offset):
+    """The range pass's bound equals the torch ops' and the frozen reference's
+    bit for bit, at the data's allocation and 1 and 3 elements past it (a
+    float32 view 4 bytes off), at several relative bounds; the extremes are
+    planted at the first and last element and in the middle."""
+    ref_mod = _fz_ref()
+    gen = torch.Generator().manual_seed(sum(shape) + offset)
+    n = int(np.prod(shape))
+    for where in (0, n - 1, n // 2):
+        x = torch.randn(shape, generator=gen) * 3.0 + 0.5
+        x.view(-1)[where] = 40.0
+        x.view(-1)[(where + n // 3) % n] = -25.0 if n > 1 else 40.0
+        xc = _on_card(x, cuda, dtype, offset)
+        for eb in (1e-3, 1e-5, 0.1, 0.3):
+            got = _range_eb(xc, eb)
+            assert _same_bits(got, _torch_ops_eb(xc, eb)), (where, eb)
+            assert _same_bits(got, ref_mod.resolve_eb(xc, eb, "rel")), (where, eb)
+
+
+def _range_eb(x, eb):
+    from repro_torch.kernels.fused_compress import range_eb
+    return range_eb(x, eb)
+
+
+RANGE_EDGES = {"constant": lambda n: torch.full((n,), 2.5),
+               "negative": lambda n: -1.0 - torch.rand(n, generator=torch.Generator().manual_seed(2)),
+               "signed-zeros": lambda n: torch.where(torch.arange(n) % 3 == 0, -0.0, 0.0),
+               "inf": lambda n: torch.linspace(-1, 1, n).index_fill(0, torch.tensor([n // 2]),
+                                                                   float("inf")),
+               "ninf": lambda n: torch.linspace(-1, 1, n).index_fill(0, torch.tensor([n - 1]),
+                                                                    float("-inf")),
+               "both-inf": lambda n: torch.linspace(-1, 1, n).index_fill(
+                   0, torch.tensor([0, n - 1]), float("inf")).index_fill(
+                   0, torch.tensor([1]), float("-inf"))}
+
+
+@pytest.mark.parametrize("case", list(RANGE_EDGES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_range_eb_edge_fields(cuda, case, dtype):
+    """A constant field (range 0), an all-negative field, one of only -0.0 and
+    0.0 (the 1e-30 floor) and infinities: the torch ops' bits."""
+    for n, offset in ((4097, 1), (70001, 0)):
+        xc = _on_card(RANGE_EDGES[case](n), cuda, dtype, offset)
+        got = _range_eb(xc, 1e-3)
+        assert _same_bits(got, _torch_ops_eb(xc, 1e-3)), (n, offset)
+    if case == "signed-zeros":
+        assert float(got) == np.float32(1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_range_eb_gives_nan_for_a_nan_anywhere(cuda, dtype):
+    """A NaN in the head before the first 16-byte boundary, the vector body,
+    the tail or the last element gives NaN, as ``amax`` and ``amin`` do."""
+    n, offset = 70001, 3
+    for at in (0, 2, 5, n // 2, n - 3, n - 1):
+        x = torch.linspace(-2, 5, n)
+        x[at] = float("nan")
+        got = _range_eb(_on_card(x, cuda, dtype, offset), 1e-3)
+        assert torch.isnan(got).item(), at
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_range_eb_past_2_28_elements(cuda, dtype):
+    """One n over 2^28, the extremes at the far end of the field."""
+    n = (1 << 28) + 12345
+    x = torch.rand(n, generator=torch.Generator(device=cuda).manual_seed(9), device=cuda)
+    x = x.to(dtype)
+    x[-1] = 7.0
+    x[-2] = -3.0
+    for eb in (1e-3, 1e-5):
+        assert _same_bits(_range_eb(x, eb), _torch_ops_eb(x, eb))
+    del x
+    torch.cuda.empty_cache()
+
+
+def _launches_in(evs, range_name):
+    """For each host range ``range_name`` of a Chrome trace, the device ops its
+    launches made, by name."""
+    ranges = [e for e in evs if e.get("cat") == "user_annotation" and e["name"] == range_name]
+    runtime = [e for e in evs if e.get("cat") == "cuda_runtime"]
+    device = {}
+    for e in evs:
+        if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"):
+            device.setdefault(e["args"].get("correlation"), []).append(e["name"])
+    out = []
+    for r in ranges:
+        ops = []
+        for e in runtime:
+            if r["ts"] <= e["ts"] <= r["ts"] + r["dur"]:
+                ops += device.get(e["args"].get("correlation"), [])
+        out.append(ops)
+    return out
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["paper", "strict"])
+def test_resolve_eb_is_one_pass_on_the_card(cuda, strict, tmp_path):
+    """A relative compress on the card: ``fz.stage.resolve_eb`` holds at most two
+    device ops, one of them the range pass, launched once a call; and the
+    container equals one built against the torch ops' bound, on the fused and
+    the staged route."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import compress_with_eb
+    x = _field((70000,) if strict else (9, 33, 70)).to(cuda)
+    cfg = FZConfig(eb=1e-5) if strict else FZConfig(exact_outliers=False)
+    compress(x, cfg)
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = [compress(x, cfg) for _ in range(3)]
+        torch.cuda.synchronize()
+    assert kernels.launch_counts()["range_eb"] == 3
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    evs = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    calls = _launches_in(evs, "fz.stage.resolve_eb")
+    assert len(calls) == 3
+    for ops in calls:
+        assert 1 <= len(ops) <= 2, ops
+        assert sum("range_eb" in name for name in ops) == 1, ops
+    want = compress_with_eb(x, _torch_ops_eb(x, cfg.eb), cfg)
+    staged = compress(x, FZConfig(eb=cfg.eb, exact_outliers=strict, kernel_mode="staged"))
+    for c in (*got, staged):
+        for f in c.FIELDS:
+            assert _equal(getattr(c, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("case", ["float16", "float64", "strided", "transposed"])
+def test_range_eb_takes_other_floats_and_layouts(cuda, case):
+    """On the card with the kernels every floating tensor takes the range pass:
+    float16 and float64 are copied to float32 first and a strided or transposed
+    view to a contiguous one, for the torch ops' bits; integers are refused."""
+    from repro_torch import resolve_eb
+    x = torch.randn(301, 257, generator=torch.Generator().manual_seed(4)) * 5.0
+    x[7, 9], x[290, 3] = 61.0, -17.0
+    xc = {"float16": lambda: x.to(torch.float16).to(cuda),
+          "float64": lambda: (x.double() * (1 + 2**-30)).to(cuda),
+          "strided": lambda: x.to(cuda)[::3, 1::2],
+          "transposed": lambda: x.to(cuda).t()}[case]()
+    kernels.reset_launch_counts()
+    for eb in (1e-3, 1e-5):
+        got = resolve_eb(xc, FZConfig(eb=eb))
+        assert _same_bits(got, _torch_ops_eb(xc, eb)), eb
+    assert kernels.launch_counts()["range_eb"] == 2
+    with pytest.raises(ValueError, match="range_eb takes floating data"):
+        _range_eb(torch.zeros(8, dtype=torch.int32, device=cuda), 1e-3)
 
 
 def test_span_in_a_cuda_graph_capture_records_only_a_trace_time_event(cuda):

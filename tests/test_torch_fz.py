@@ -140,13 +140,67 @@ def test_compress_with_eb_matches_reference(ref, route):
     assert_same_container(jc, c)
 
 
-@pytest.mark.parametrize("eb_mode,value", [("rel", 1.0), ("rel", 0.0), ("rel", -3.5),
-                                           ("abs", 1.0)])
-def test_resolve_eb_matches_reference(ref, eb_mode, value):
-    x = make_field("smooth", (40, 40), seed=6) * value
-    cfg = rt.FZConfig(eb=1e-3, eb_mode=eb_mode)
+# fields of their own for the bound: a constant (range 0), all negative, signed
+# zeros, infinities and a NaN
+EB_FIELDS = {"constant": [2.5] * 7, "negative": [-3.0, -1e-3, -7.5, -2.0],
+             "zeros": [-0.0, 0.0, -0.0, 0.0], "inf": [1.0, np.inf, -2.0],
+             "ninf": [-np.inf, 3.0, 0.5], "both-inf": [np.inf, -np.inf],
+             "nan": [0.5, np.nan, -1.0]}
+# route: "cpu" (use_kernels, a CPU tensor), "plain" (use_kernels=False) or
+# "meta" (the dry-run's tensors): each runs the torch ops
+RESOLVE_CASES = [pytest.param("rel", 1.0, "cpu", id="rel-1.0"),
+                 pytest.param("rel", 0.0, "cpu", id="rel-0.0"),
+                 pytest.param("rel", -3.5, "cpu", id="rel--3.5"),
+                 pytest.param("abs", 1.0, "cpu", id="abs-1.0"),
+                 *[pytest.param("rel", v, r, id=f"rel-{v}-{r}")
+                   for v in (1.0, *EB_FIELDS) for r in ("cpu", "plain", "meta")
+                   if (v, r) != (1.0, "cpu")]]
+
+
+@pytest.mark.parametrize("eb_mode,value,route", RESOLVE_CASES)
+def test_resolve_eb_matches_reference(ref, eb_mode, value, route):
+    """Off the card ``resolve_eb`` runs the torch ops, launches no range pass,
+    and equals the reference bit for bit (NaN for NaN); on ``meta`` tensors it
+    gives a meta scalar."""
+    from repro_torch.kernels import range_eb
+    if isinstance(value, str):
+        x = np.array(EB_FIELDS[value], dtype=np.float32)
+    else:
+        x = make_field("smooth", (40, 40), seed=6) * value
+    cfg = rt.FZConfig(eb=1e-3, eb_mode=eb_mode, use_kernels=route != "plain")
     jcfg = jfz.FZConfig(eb=1e-3, eb_mode=eb_mode)
-    assert_same(ref.resolve_eb(jnp.asarray(x), jcfg), rt.resolve_eb(torch.from_numpy(x), cfg))
+    want = np.asarray(ref.resolve_eb(jnp.asarray(x), jcfg))
+    before = range_eb.launches
+    got = rt.resolve_eb(torch.from_numpy(x).to("meta" if route == "meta" else "cpu"), cfg)
+    assert range_eb.launches == before
+    if route == "meta":
+        assert got.is_meta and got.shape == () and got.dtype == torch.float32
+    elif np.isnan(want):
+        assert torch.isnan(got) and got.shape == () and got.dtype == torch.float32
+    else:
+        assert_same(want, got)
+
+
+@pytest.mark.parametrize("bad", ["float32", "float16", "float64", "int32", "empty", "strided",
+                                 "bool", "meta"])
+def test_range_eb_refuses_what_it_does_not_take(bad):
+    """The range pass's wrapper takes floating data of one element or more on
+    the card, and refuses anything else before a launch: here every tensor is
+    on the CPU or ``meta``, and integers and empty data anywhere."""
+    from repro_torch.kernels import range_eb
+    data = {"float32": lambda: torch.zeros(8),
+            "float16": lambda: torch.zeros(8, dtype=torch.float16),
+            "float64": lambda: torch.zeros(8, dtype=torch.float64),
+            "int32": lambda: torch.zeros(8, dtype=torch.int32),
+            "empty": lambda: torch.zeros(0),
+            "strided": lambda: torch.zeros(16)[::2],
+            "bool": lambda: torch.zeros(8, dtype=torch.bool),
+            "meta": lambda: torch.empty(8, device="meta")}[bad]()
+    before = range_eb.launches
+    with pytest.raises(ValueError, match="range_eb takes floating data of one element or more "
+                                         "on the card"):
+        range_eb(data, 1e-3)
+    assert range_eb.launches == before
 
 
 def test_roundtrip_holds_the_error_bound():
